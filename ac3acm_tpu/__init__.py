@@ -1,10 +1,10 @@
-"""ac3acm_tpu: a TPU-native AC-3 (ATSC A/52) codec framework.
+"""ac3acm_tpu: an AC-3 (ATSC A/52) codec framework in JAX.
 
 Rebuild of the capabilities of the AC-3 ACM codec (liba52 decoder +
 Bellard/fccHandler encoder + ACM shell) as a batched JAX/XLA pipeline with
 a native C++ host runtime:
 
-  models.decoder / models.encoder   per-stream codecs (TPU device path)
+  models.decoder / models.encoder   per-stream codecs (device path)
   parallel.pipeline / .transcode    batched multi-stream + mesh sharding
   host.native                       C++ pre-pass parser & bit-exact decoder
   io.stream                         ACM-shell-equivalent streaming layer

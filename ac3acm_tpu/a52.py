@@ -5,7 +5,7 @@ The reference's C API reshaped minimally for Python: a52_init returns a
 state object, a52_frame/a52_block drive per-frame decode, a52_samples
 returns the current block's planar samples.  Internally this drives the
 bit-exact native CPU backend; use ac3acm_tpu.models / .parallel for the
-batched TPU pipelines.
+batched device pipelines.
 """
 from __future__ import annotations
 

@@ -273,7 +273,7 @@ def cmd_info(args):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="ac3acm_tpu",
-                                description="TPU-native AC-3 codec tools")
+                                description="AC-3 codec tools (JAX device pipeline)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     d = sub.add_parser("decode", help="AC-3 -> PCM (a52dec parity)")
@@ -290,11 +290,12 @@ def main(argv=None):
                    choices=["reference", "fast"],
                    help="reference (default): order-exact IMDCT, "
                         "bit-exact vs the compiled reference on every "
-                        "path; fast: matmul/fused filterbank under the "
+                        "path; fast: matmul filterbank under the "
                         "0.02/0.001/0.002 LSB contract")
-    d.add_argument("--backend", default="native", choices=["native", "tpu"],
-                   help="native: bit-exact C++ CPU path; tpu: device "
-                        "pipeline (float and fixed sample types)")
+    d.add_argument("--backend", default="native",
+                   choices=["native", "device"],
+                   help="native: bit-exact C++ CPU path; device: JAX "
+                        "device pipeline (float and fixed sample types)")
     d.add_argument("--no-drc", dest="drc", action="store_false")
     d.add_argument("--container", default="auto", choices=["auto", "es", "ps", "ts"])
     d.add_argument("--track", type=lambda x: int(x, 0), default=0)

@@ -29,8 +29,8 @@ def _build_dir() -> str:
     """Where to place the compiled shared library: next to the sources
     when the install is writable (a source checkout), else a per-user
     cache (pip installs into read-only site-packages).  Override with
-    AC3TPU_NATIVE_BUILD_DIR."""
-    env = os.environ.get("AC3TPU_NATIVE_BUILD_DIR")
+    AC3ACM_NATIVE_BUILD_DIR."""
+    env = os.environ.get("AC3ACM_NATIVE_BUILD_DIR")
     if env:
         return env
     cand = os.path.join(_NATIVE_DIR, "build")
@@ -216,8 +216,8 @@ class NativeDecoder:
 
     Matches the reference decoder float-for-float (compiled with
     -ffp-contract=off so every f32 product rounds identically).  This is
-    the framework's bit-matching mode and CPU fallback; the TPU pipeline
-    is the throughput path.
+    the framework's bit-matching mode and CPU fallback; the device
+    pipeline is the throughput path.
     """
 
     def __init__(self):
@@ -299,12 +299,13 @@ class SampleDecoder:
     def __init__(self, kind: str, backend: str = "native"):
         if kind not in self._KINDS:
             raise ValueError(f"kind must be fixed|double, got {kind!r}")
-        if backend not in ("native", "tpu"):
-            raise ValueError(f"backend must be native|tpu, got {backend!r}")
-        if backend == "tpu" and kind != "fixed":
-            # double needs f64 arithmetic, which TPUs do not implement;
-            # the reference's double build stays a CPU backend
-            raise ValueError("backend='tpu' supports kind='fixed' only")
+        if backend not in ("native", "device"):
+            raise ValueError(
+                f"backend must be native|device, got {backend!r}")
+        if backend == "device" and kind != "fixed":
+            # the device path implements the fixed-point build only; a
+            # double device backend (the GPU has f64) is a ROADMAP item
+            raise ValueError("backend='device' supports kind='fixed' only")
         self.kind = kind
         self.backend = backend
         self._k, self._np = self._KINDS[kind]
@@ -351,7 +352,7 @@ class SampleDecoder:
             level = float(1 << 26) if self._k == 0 else 1.0
         if bias is None:
             bias = 0.0
-        if self.backend == "tpu":
+        if self.backend == "device":
             return self._decode_stream_device(es, flags, level)
         out_blocks = []
         pcm = np.zeros((6, 6, 256), self._np)

@@ -2,7 +2,7 @@
 
 This is the serial, bit-granular half of the decoder (syncinfo, BSI,
 side-info, exponents, bit allocation, mantissa-code extraction, dither
-LFSR).  It emits, per block, dense arrays the TPU device path consumes:
+LFSR).  It emits, per block, dense arrays the device path consumes:
 
     freq[ch, k] = (q[ch, k] * a[ch, k]) * b[ch, k]
 

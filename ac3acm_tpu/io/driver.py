@@ -124,7 +124,7 @@ class CodecDriver:
     """
 
     #: driver identity strings (AC3ACM.rc version block parity)
-    NAME = "AC-3 ACM Codec (TPU-native)"
+    NAME = "AC-3 ACM Codec (JAX device pipeline)"
     VERSION = "2.2"
 
     def __init__(self, cfg: CodecConfig | None = None,

@@ -167,7 +167,7 @@ class Ac3ToPcmStream:
     def __init__(self, dst_channels: int | None = None,
                  cfg: CodecConfig | None = None, exact: bool = False):
         """exact=True decodes with the order-exact filterbank (bit-identical
-        float replay of the reference); default is the MXU matmul path."""
+        float replay of the reference); default is the matmul path."""
         from ..models.decoder import Decoder
         self.cfg = cfg or CodecConfig()
         self.dec = Decoder(exact=exact)

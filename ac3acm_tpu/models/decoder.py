@@ -1,4 +1,4 @@
-"""TPU-native AC-3 decoder.
+"""AC-3 decoder: the device pipelines and the per-stream Decoder.
 
 Split of responsibilities (BASELINE north star):
   host pre-pass (ac3acm_tpu.host.parse)  -> dense (q, a, b) block tensors
@@ -36,8 +36,8 @@ from ..ops.filterbank import filterbank
 #       (max <= 0.01, mean <= 0.001, sigma <= 0.001 in 1/32768 units;
 #       a52dec-0.7.5-cvs/test/compare.c:63-72) holds by construction on ALL
 #       content, not just measured content.
-#   "fast": the MXU matmul filterbank (+ the gated Pallas fused steady
-#       kernel).  Contract: max <= 0.02, mean <= 0.001, sigma <= 0.002 --
+#   "fast": the HIGHEST-precision matmul filterbank.  Contract:
+#       max <= 0.02, mean <= 0.001, sigma <= 0.002 --
 #       the dot-product reassociation error is a few f32 ulps of the
 #       partial sums, which adversarial full-scale content can push past
 #       compare.c's 0.01 (measured 0.25 LSB on a coupling-dense stream)
@@ -173,7 +173,7 @@ def _block_step(fmt: StreamFormat, carry, blk, filterbank=filterbank):
 def _pipeline_body(fmt: StreamFormat, carry, blocks, exact: bool = False):
     """All blocks of a chunk at once: the filterbank matmuls are hoisted out
     of the sequential part (the OLA carry only feeds the cheap window
-    epilogue), so blocks x channels x streams fuse into one MXU matmul and
+    epilogue), so blocks x channels x streams fuse into one matmul and
     the scan body is elementwise.  Equivalent to scanning _block_step
     (guarded by tests).  exact=True hoists the order-exact (z, d) split
     instead of the matmul (see _pipeline_steady)."""
@@ -299,10 +299,10 @@ def _pipeline_steady(fmt: StreamFormat, carry, blocks,
 
     long_only=True (requires no short block anywhere in the chunk --
     host-checked) skips the all-zero short-matrix matmul, halving the
-    dominant MXU cost.  Identical values: zeros @ w_short contributes
+    dominant matmul cost.  Identical values: zeros @ w_short contributes
     exact zeros.
 
-    exact=True (the ACCURACY="reference" default) swaps the MXU matmul
+    exact=True (the ACCURACY="reference" default) swaps the matmul
     for the order-exact (z, d) split (ops.imdct_exact.split_fb_exact):
     the chunk structure is unchanged -- the exact IMDCT's delay output is
     also independent of the entering delay -- and the output becomes
@@ -454,33 +454,6 @@ def premix_blocks(fmt: StreamFormat, blocks) -> dict:
     return out
 
 
-def premix_blocks_device(fmt: StreamFormat, blocks) -> dict:
-    """Traced (jnp) twin of premix_blocks for the raw-H2D path: the
-    planes already live on device after ops.unpack_device, so the
-    rematrix + mixer sums run as the SAME elementwise expressions
-    (ops.downmix, identical IEEE f32 evaluation order) before the fused
-    Pallas tail.  Bitwise-equal planes to the host premix."""
-    assert fmt.nf_out < fmt.nfchans or fmt.identity_mix, \
-        "premix requires the freq (reduces) path or an identity mix"
-    freq = blocks["freq"]                              # [B, n, 6, 256]
-    if fmt.acmod == T.A52_STEREO:
-        m = blocks["remat"]
-        s0 = freq[..., 0, :]
-        s1 = freq[..., 1, :]
-        freq = freq.at[..., 0, :].set(jnp.where(m, s0 + s1, s0))
-        freq = freq.at[..., 1, :].set(jnp.where(m, s0 - s1, s1))
-    planes = jnp.moveaxis(freq, -2, 0)                 # [6, B, n, 256]
-    mixed = downmix(planes[:5], fmt.acmod, fmt.output,
-                    jnp.zeros((), jnp.float32), slev_zero=fmt.slev_zero)
-    keep = [mixed[i] for i in range(fmt.nf_out)]
-    if fmt.lfe_out:
-        keep.append(planes[5])
-    pre = jnp.moveaxis(jnp.stack(keep), 0, -2)         # [B, n, P, 256]
-    out = {k: v for k, v in blocks.items() if k != "remat"}
-    out["freq"] = pre
-    return out
-
-
 def steady_ok(fmt: StreamFormat, blocks) -> bool:
     """Host-side eligibility check for _pipeline_steady (numpy blocks,
     arbitrary leading batch axes)."""
@@ -506,7 +479,7 @@ def block_pipeline(fmt: StreamFormat, exact: bool = None):
     Batched variants vmap this over a leading stream axis.
 
     exact (default: the package ACCURACY policy) hoists the order-exact
-    (z, d) IMDCT split (ops.imdct_exact) instead of the MXU matmul: the
+    (z, d) IMDCT split (ops.imdct_exact) instead of the matmul: the
     float output then replays the reference's operation order bit-for-bit
     on any backend (the matmul path is within a few f32 ulps of the
     partial sums, which adversarial content can push past compare.c's

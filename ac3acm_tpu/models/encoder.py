@@ -1,8 +1,8 @@
-"""TPU-native AC-3 encoder.
+"""AC-3 encoder on the device.
 
 Capability parity with the reference encoder (fccHandler/Bellard ac3enc,
 /root/reference/src/ac3enc/ac3enc.cpp), bit-exact output frames, but
-restructured for the TPU:
+restructured for a batched accelerator:
 
   * the six blocks x channels x streams all window/normalize/MDCT in one
     vectorized pass (the reference loops scalar C per block),
@@ -120,7 +120,7 @@ def _encode_exp_static(exp, nb_coefs: int, gsize: int):
     c_i = min(v_i, c_{i-1} + 2), whose closed form
     f_i = 2i + cummin_j<=i(v_j - 2j) runs as a log-depth associative scan
     (and symmetrically backward) -- ~7 vector steps instead of ~75
-    sequential scan iterations on the TPU.
+    sequential scan iterations.
     """
     ngroups = ((nb_coefs + gsize * 3 - 4) // (3 * gsize)) * 3
     k = 1 + np.arange(ngroups)[:, None] * gsize + np.arange(gsize)[None, :]
@@ -196,11 +196,9 @@ def _multi_body(cfg: EncoderConfig):
 
     A lax.scan over frames carrying (last_samples, csnroffst).  A
     scan-free variant (all F frames flattened into one [F*B] batch, with
-    the csnroffst carry reduced to an F-step [B]-scalar recurrence --
-    valid because _frame_core's M is carry-independent) was measured
-    SLOWER on the chip (228 ms vs 178 ms at [8, 512] 5.1/640k): the 8x
-    larger intermediates tile worse than the scan's per-step reuse, so
-    the scan stays."""
+    the csnroffst carry reduced to an F-step [B]-scalar recurrence) is
+    possible because _frame_core's M is carry-independent; it has not
+    been measured on the GPU."""
     run = _frame_body(cfg)
 
     def multi(samples, last, csnr):
@@ -223,49 +221,28 @@ def encode_pipeline_multi(cfg: EncoderConfig):
 
 @lru_cache(maxsize=16)
 def encode_pipeline_packed(cfg: EncoderConfig):
-    """jitted multi-frame encode + on-device bit pack, one dispatch:
+    """Multi-frame encode + on-device bit pack:
     (samples [F,B,1536,nch] int, last, csnr) ->
     ((last', csnr'), ok [F,B] bool, frames [F,B,frame_size*2] uint8).
 
-    The dense frame fields (qmant/exp/bap) never leave the chip and the
+    The dense frame fields (qmant/exp/bap) never leave the device and the
     host never syncs between the encode and pack stages -- only the ok
-    mask and the finished serial frames come back.
-
-    On CPU the two stages stay separate programs (same results, one extra
-    dispatch): the fused module duplicates fusions the unfused programs
-    already have compiled, and XLA:CPU keeps ~3 memory mappings live per
-    JIT'd fusion -- long test sessions exhaust vm.max_map_count and
-    segfault mid-compile, so CPU runs reuse the existing programs."""
+    mask and the finished serial frames come back.  Encode and pack are
+    two programs: one fused program measured the same on the H100 (see
+    PERF.md), and on XLA:CPU it would duplicate fusions the two programs
+    already have compiled (XLA:CPU keeps ~3 memory mappings live per
+    fusion; long test sessions would exhaust vm.max_map_count)."""
     from ..ops.pack_device import pack_frames_device
     pack = pack_frames_device(cfg)
+    multi = encode_pipeline_multi(cfg)
 
-    if jax.default_backend() != "tpu":
-        multi = encode_pipeline_multi(cfg)
-
-        def composed(samples, last, csnr):
-            carry, enc = multi(samples, last, csnr)
-            frames = pack(enc["bap"], enc["qmant"], enc["enc_exp"],
-                          enc["strat"], enc["csnroffst"], enc["fsnroffst"])
-            return carry, enc["ok"], frames
-
-        return composed
-
-    # NOTE (VERDICT r4 #7): packing INSIDE the frame scan (per-step pack
-    # consuming qmant/exp/bap before they stack [F, ...] through HBM)
-    # was tried and measured SLOWER on chip -- 112 ms vs 80 ms per
-    # 512x8f 5.1/640k chunk: the whole-chunk pack amortizes its
-    # fixed-cost stages (token prefix-sums, deposit tiling, CRC) over 8
-    # frames, which outweighs the avoided inter-stage materialization.
-    # The batched whole-chunk form stays.
-    run = _multi_body(cfg)
-
-    def full(samples, last, csnr):
-        carry, enc = run(samples.astype(jnp.int32), last, csnr)
+    def run(samples, last, csnr):
+        carry, enc = multi(samples, last, csnr)
         frames = pack(enc["bap"], enc["qmant"], enc["enc_exp"],
                       enc["strat"], enc["csnroffst"], enc["fsnroffst"])
         return carry, enc["ok"], frames
 
-    return jax.jit(full)
+    return run
 
 
 def _frame_core(cfg: EncoderConfig):

@@ -1,9 +1,9 @@
-// TPU-native AC-3 framework: native host pre-pass.
+// AC-3 codec framework: native host pre-pass.
 //
 // The serial, bit-granular half of the decoder (syncinfo, BSI/side-info
 // parse, spec-form bit allocation, mantissa-code extraction, dither LFSR)
 // implemented as a C ABI shared library.  Python drives it via ctypes and
-// feeds the dense (q, a, b) block tensors it emits straight to the TPU
+// feeds the dense (q, a, b) block tensors it emits straight to the device
 // pipeline.  One parser instance per stream; instances are independent, so
 // the host fans streams out across threads (the GIL is released during
 // calls).
@@ -22,6 +22,7 @@
 #include <cstdint>
 #include <cstring>
 #include <cmath>
+#include <mutex>
 
 // ---------------------------------------------------------------------------
 // constants & tables (generated at init, mirroring ac3acm_tpu/tables.py)
@@ -1322,7 +1323,6 @@ struct FloatOps {
 
 static FbTables<float> g_fbt;
 static uint8_t g_fftorder[128];
-static bool g_imdct_ready = false;
 
 static double bessel_i0(double x) {
     double b = 1.0;
@@ -1384,12 +1384,16 @@ static void fb_fill_tables(FbTables<S>& t, const uint8_t* order, CAST cast) {
     }
 }
 
+// Once per process, whichever thread gets there first: the parse pool's
+// worker threads all call this, and building the tables concurrently
+// corrupts the heap.
 static void imdct_init_native() {
-    if (g_imdct_ready) return;
-    build_fftorder();
-    fb_fill_tables(g_fbt, g_fftorder, [](double x) { return (float)x; });
-    fb_plans(g_fftorder);            // build the shared butterfly schedule
-    g_imdct_ready = true;
+    static std::once_flag once;
+    std::call_once(once, [] {
+        build_fftorder();
+        fb_fill_tables(g_fbt, g_fftorder, [](double x) { return (float)x; });
+        fb_plans(g_fftorder);        // build the shared butterfly schedule
+    });
 }
 
 // data [256] in place -> windowed overlap-added output; delay [128] OLA state
@@ -1564,7 +1568,7 @@ extern "C" void ac3h_dec_get_delay(NativeDecoder* d, float* out, int* dmx) {
 }
 
 // ===========================================================================
-// Dense multi-lane parse: the host half of the end-to-end TPU pipeline.
+// Dense multi-lane parse: the host half of the end-to-end device pipeline.
 //
 // One call per batch: N independent stream parsers consume their byte
 // buffers and emit device-ready tensors -- dequantized frequency planes
@@ -1960,17 +1964,18 @@ struct PackBits {
 };
 
 static uint16_t g_crc_tab[256];
-static bool g_crc_ready = false;
 static void crc_init() {
-    if (g_crc_ready) return;
-    for (int n = 0; n < 256; n++) {
-        uint32_t c = n << 8;
-        for (int k = 0; k < 8; k++)
-            c = (c & (1u << 15)) ? (((c << 1) & 0xFFFF) ^ (CRC16_POLY & 0xFFFF))
-                                 : (c << 1);
-        g_crc_tab[n] = (uint16_t)(c & 0xFFFF);
-    }
-    g_crc_ready = true;
+    static std::once_flag once;
+    std::call_once(once, [] {
+        for (int n = 0; n < 256; n++) {
+            uint32_t c = n << 8;
+            for (int k = 0; k < 8; k++)
+                c = (c & (1u << 15))
+                    ? (((c << 1) & 0xFFFF) ^ (CRC16_POLY & 0xFFFF))
+                    : (c << 1);
+            g_crc_tab[n] = (uint16_t)(c & 0xFFFF);
+        }
+    });
 }
 
 static inline uint16_t ac3_crc(const uint8_t* p, size_t n, uint16_t crc) {

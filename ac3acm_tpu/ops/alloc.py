@@ -1,7 +1,7 @@
 """Device-side parametric bit allocation (A/52 §7.2.2), fully vectorized.
 
 Same algorithm as the host allocator (ac3acm_tpu.host.alloc -- itself fuzzed
-bit-for-bit against liba52's a52_bit_allocate), restructured for the VPU:
+bit-for-bit against liba52's a52_bit_allocate), restructured as vector ops:
 
   * band PSD integration: the sequential in-band log-add fold becomes a
     23-step vectorized fold over a [.., 50, 24] padded layout,
@@ -61,7 +61,7 @@ def _size_runs():
 def _latab_thresholds():
     """LATAB is monotone nonincreasing, so latab[adr] = #\\{t : adr < thr_t\\}
     with thr_t = first index where latab < t.  Turns the per-element gather
-    (pathological on TPU) into ~64 vectorized compares."""
+    into ~64 vectorized compares."""
     lat = np.asarray(T.LATAB[:256]).astype(np.int64)
     assert (np.diff(lat) <= 0).all()
     thr = np.array([int(np.searchsorted(-lat, -t + 1))

@@ -1,454 +1,50 @@
-"""Pallas windowed bitfield gather: the device half of bitstream unpack.
+"""Bitfield gather: the device half of bitstream unpack.
 
 Extracts many variable-width (<=16 bit) fields from per-row byte buffers
-at monotone bit offsets.  This is the primitive under the raw-H2D decode
+at arbitrary bit offsets.  This is the primitive under the raw-H2D decode
 path (ops.unpack_device): the host ships raw AC-3 frame bytes + side-info
 offsets, and the device pulls exponent groups, coupling coordinates and
 mantissa codes out of the bits itself (reference semantics:
-/root/reference/a52dec-0.7.5-cvs/liba52/bitstream.h:53-77, re-expressed
-as a batched gather rather than a cursor).
+liba52/bitstream.h:53-77, re-expressed as a batched gather rather than a
+cursor).
 
-XLA's gather HLO runs at ~0.03 Gslot/s on v5e at these shapes (measured)
--- slower than one host core.  This kernel instead exploits that offsets
-are monotone within each 128-slot tile, so every tile's fields live in a
-small window of the buffer:
-
-  * three pre-scaled byte planes (b[p]<<16, b[p+1]<<8, b[p+2] at every
-    byte position p) are precomputed once per buffer outside the kernel.
-    Each plane value is an 8-bit integer times a power of two -- EXACT
-    in bfloat16 -- so the gather matmul runs in ONE default-precision
-    MXU pass (the earlier p24-f32 form needed a 6-pass HIGHEST dot;
-    measured 2.3x slower at bench shapes),
-  * the planes are STORED f32 and cast to bf16 after the load: Mosaic
-    requires dynamic sublane starts on a bf16 vmem ref to be provably
-    8-aligned (window starts are data-dependent), while the f32 layout
-    takes arbitrary dynamic starts; the cast is exact (see above),
-  * the planes are row-INTERLEAVED (image row 3*r+p holds plane p of
-    byte-row r) so each tile's window is ONE dynamic sublane slice of
-    length 3*fr (start rows scalar-prefetched) -- Mosaic compiles the
-    single-slice form ~30x faster than three slices per tile,
-  * per-slot selection decomposes by radix: a [slots, 128] lane one-hot
-    bf16 matmul picks the column (exact -- each output sums one one-hot
-    product into an f32 accumulator), the three plane rows add into the
-    24-bit window value (< 2^24, exact in f32), and a per-row select
-    picks the window row,
-  * the <=16-bit field is then shifted/masked out on the VPU, exactly
-    BitReader.gather's arithmetic (host/bitio.py:53-68).
-
-Each grid step handles 8 tiles (Mosaic wants >=8 sublanes per block),
-each tile with its own window.
+Each field is one XLA gather of the 24-bit big-endian window starting at
+byte off>>3, then a shift and a mask -- exactly BitReader.gather's
+arithmetic (host/bitio.py:53-68), which reference_extract below uses as
+the oracle.  A field of width <= 16 at bit phase <= 7 always fits the
+window.  Buffers are zero-padded by two bytes so the window of the last
+byte stays in bounds.
 """
 from __future__ import annotations
 
-from functools import lru_cache, partial
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-# trace-time knob: run pallas_call in interpreter mode (CPU tests)
-INTERPRET = False
-
-TS = 128                 # slots per tile (lane dim)
-TPG = 8                  # tiles per grid step (sublane dim)
 
 
-def _kernel_mega(fr, U, starts_ref, planes_ref, offs_ref, widths_ref,
-                 out_ref):
-    """One grid step per ROW; all U steps of W=TPG*TS=1024 slots run as
-    an unrolled in-kernel loop.  The per-tile form below runs U*TPG tiny
-    batched matmuls spread over N*U grid steps; at raw-unpack shapes the
-    ~1 us fixed cost per grid step (DMA/semaphore orchestration)
-    dominates everything else -- measured: collapsing the window matmul
-    from 8 passes to 1 per step changed nothing while the grid shape
-    stayed (N, U).  Here the grid is (N,): per row, U window slices + U
-    2D [3*fr, 128] x [128, W] byte-select matmuls (slots on the LANE
-    axis -- no lane-crossing reshapes), each followed by 3*fr vector
-    select-accumulates resolving the interleaved (row, plane) select."""
-    W = offs_ref.shape[2]
-    lane = jax.lax.broadcasted_iota(jnp.int32, (128, W), 0)
-    # narrow wire dtypes (the offsets/widths/out DMA floor is ~1/3 of
-    # kernel cost at raw-unpack shapes): offsets arrive WINDOW-RELATIVE
-    # int16 (the absolute offset is rel + start_row*1024, never needed
-    # in here), widths int8, and the <=16-bit field values leave as
-    # int16 (consumers reinterpret via as_u16).  One upcast per block,
-    # then static slices in the unrolled u loop.
-    rel32 = offs_ref[0].astype(jnp.int32)                 # [U, W]
-    wid32 = widths_ref[0].astype(jnp.int32)
-    for u in range(U):
-        row = starts_ref[0, 0, u]
-        win = planes_ref[0, pl.ds(row * 3, fr * 3), :].astype(jnp.bfloat16)
-        rel = rel32[u:u + 1]                              # [1, W] bits
-        within = rel >> 3                                 # byte in window
-        lo = within & 127
-        hi = within >> 7                                  # window row
-        oh = (lane == lo).astype(jnp.bfloat16)            # [128, W]
-        t = jax.lax.dot_general(
-            win, oh, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)           # [3*fr, W]
-        # interleaved window rows: t[3*h + p] is byte-row h, plane p;
-        # the slot's three plane rows accumulate into the 24-bit value
-        w24 = jnp.zeros((1, W), jnp.float32)
-        for c in range(3 * fr):
-            w24 = w24 + jnp.where(hi == (c // 3), t[c:c + 1, :], 0.0)
-        w24 = w24.astype(jnp.int32)
-        widths = wid32[u:u + 1]                           # [1, W]
-        shift = 24 - (rel & 7) - widths
-        val = (w24 >> shift) & ((jnp.int32(1) << widths) - 1)
-        out_ref[0, pl.ds(u, 1)] = val.astype(jnp.int16)
-
-
-def _kernel_mega_i16(fr, U, starts_ref, planes_ref, offs_ref, out_ref):
-    """Aligned 16-bit table gather (the dither-orbit shape): offsets are
-    ENTRY indices into a shared i16-value table stored as two exact bf16
-    byte planes (hi<<8, lo), window-relative int16 on the wire.  No
-    widths input, no shift/mask epilogue -- vs the general bitfield
-    kernel this is 2 planes instead of 3, ~1/3 less matmul M and
-    epilogue, and 3 B/slot less DMA."""
-    W = offs_ref.shape[2]
-    lane = jax.lax.broadcasted_iota(jnp.int32, (128, W), 0)
-    rel32 = offs_ref[0].astype(jnp.int32)                 # [U, W] entries
-    for u in range(U):
-        row = starts_ref[0, 0, u]
-        win = planes_ref[0, pl.ds(row * 2, fr * 2), :].astype(jnp.bfloat16)
-        rel = rel32[u:u + 1]                              # [1, W]
-        lo = rel & 127
-        hi = rel >> 7
-        oh = (lane == lo).astype(jnp.bfloat16)            # [128, W]
-        t = jax.lax.dot_general(
-            win, oh, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)           # [2*fr, W]
-        w16 = jnp.zeros((1, W), jnp.float32)
-        for c in range(2 * fr):
-            w16 = w16 + jnp.where(hi == (c // 2), t[c:c + 1, :], 0.0)
-        out_ref[0, pl.ds(u, 1)] = w16.astype(jnp.int32).astype(jnp.int16)
-
-
-@lru_cache(maxsize=16)
-def _build_mega_i16(N: int, U: int, rows: int, fr: int):
-    W = TPG * TS
-    grid_spec = pl.GridSpec(
-        grid=(N,),
-        in_specs=[
-            pl.BlockSpec((1, 1, U), lambda n: (n, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 2 * rows, 128), lambda n: (0, 0, 0)),
-            pl.BlockSpec((1, U, W), lambda n: (n, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, U, W), lambda n: (n, 0, 0)),
-    )
-    return pl.pallas_call(
-        partial(_kernel_mega_i16, fr, U),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((N, U, W), jnp.int16),
-        interpret=INTERPRET or jax.default_backend() != "tpu",
-    )
-
-
-# i16-table window rows: (fr-1)*128 entries of usable span per 1024-slot
-# step; the dither rank lattice advances ~1 entry per slot (~1030).
-MEGA_FR_I16 = 12
-
-
-def extract_i16_table(table, offsets):
-    """Gather int16 values from ONE shared table at per-slot ENTRY
-    indices (aligned-16-bit fast path of extract_fields_shared).
-
-    table [TB] int16 (or any 16-bit view); offsets [N, S] int32 entry
-    indices.  The 1024-slot step-span contract applies in ENTRY units:
-    span <= (MEGA_FR_I16-1)*128 past the step minimum."""
-    N, S = offsets.shape
-    tab = np.ascontiguousarray(np.asarray(table, np.int16))
-    hi = jnp.asarray((tab.view(np.uint16) >> 8).astype(np.float32) * 256.0)
-    lo = jnp.asarray((tab.view(np.uint16) & 0xFF).astype(np.float32))
-    TB = tab.shape[0]
-    rows = -(-TB // 128) + 1
-    pad = rows * 128 - TB
-    hi = jnp.pad(hi, (0, pad))
-    lo = jnp.pad(lo, (0, pad))
-    planes = jnp.stack([hi.reshape(rows, 128), lo.reshape(rows, 128)],
-                       axis=1).reshape(1, 2 * rows, 128)  # row-interleaved
-    W = TPG * TS
-    U = -(-S // W)
-    padn = U * W - S
-    if padn:
-        offsets = jnp.concatenate(
-            [offsets, jnp.broadcast_to(offsets[:, -1:], (N, padn))], axis=1)
-    fr = min(MEGA_FR_I16, rows)
-    offsets = offsets.reshape(N, U, W)
-    if SPAN_CHECK:
-        _check_spans("i16", offsets, (fr - 1) * 128)
-    starts = offsets.min(axis=2) >> 7
-    starts = jnp.minimum(starts, rows - fr)
-    rel = (offsets - (starts << 7)[..., None]).astype(jnp.int16)
-    out = _build_mega_i16(N, U, rows, fr)(
-        starts.reshape(N, 1, U), planes, rel)
-    return out.reshape(N, U * W)[:, :S]
-
-
-def _kernel(win_rows, flat, starts_ref, planes_ref, offs_ref, widths_ref,
-            out_ref):
-    u = pl.program_id(1)
-    fr = flat // 128                                      # window rows
-    rows = []
-    wins = []
-    for r in range(TPG):
-        row = starts_ref[0, 0, u * TPG + r]
-        rows.append(row)
-        wins.append(planes_ref[0, pl.ds(row * 3, fr * 3), :])
-    win = jnp.stack(wins, axis=0).astype(jnp.bfloat16)    # [8, 3*fr, 128]
-    offs = offs_ref[0]                                    # [8, 128]
-    base = jnp.stack(rows).astype(jnp.int32).reshape(TPG, 1)
-    within = (offs >> 3) - base * 128                     # [8, 128]
-    # radix gather: the pre-scaled byte planes hold b[p]<<16 / b[p+1]<<8 /
-    # b[p+2] at every byte position (8-bit ints times powers of two --
-    # exact in bf16), so selecting a byte position decomposes into a lane
-    # one-hot matmul (low 7 bits, ONE default-precision MXU pass; each
-    # output sums exactly one one-hot product into f32), a plane add
-    # (< 2^24, exact in f32) and a row select (high bits).
-    lo = within & 127
-    hi = within >> 7
-    lane = jax.lax.broadcasted_iota(jnp.int32, (TPG, TS, 128), 2)
-    oh = (lane == lo[..., None]).astype(jnp.bfloat16)     # [8, TS, 128]
-    t = jax.lax.dot_general(
-        win, oh, dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)               # [8, 3*fr, TS]
-    # interleaved rows: t[:, 3*h + p] is window row h, plane p
-    tr = t.reshape(TPG, fr, 3, TS)
-    v = tr[:, :, 0, :] + tr[:, :, 1, :] + tr[:, :, 2, :]
-    w24 = jnp.zeros((TPG, TS), jnp.float32)
-    for h in range(fr):
-        w24 = jnp.where(hi == h, v[:, h, :], w24)
-    w24 = w24.astype(jnp.int32)
-    widths = widths_ref[0]
-    shift = 24 - (offs & 7) - widths
-    val = (w24 >> shift) & ((jnp.int32(1) << widths) - 1)
-    out_ref[0] = val
-
-
-@lru_cache(maxsize=64)
-def _build_mega(N: int, U: int, rows: int, shared: bool, fr: int):
-    W = TPG * TS
-    grid_spec = pl.GridSpec(
-        grid=(N,),
-        in_specs=[
-            pl.BlockSpec((1, 1, U), lambda n: (n, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 3 * rows, 128),
-                         (lambda n: (0, 0, 0)) if shared
-                         else (lambda n: (n, 0, 0))),
-            pl.BlockSpec((1, U, W), lambda n: (n, 0, 0)),
-            pl.BlockSpec((1, U, W), lambda n: (n, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, U, W), lambda n: (n, 0, 0)),
-    )
-    return pl.pallas_call(
-        partial(_kernel_mega, fr, U),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((N, U, W), jnp.int16),
-        interpret=INTERPRET or jax.default_backend() != "tpu",
-    )
-
-
-def _run_mega(data_rows, offsets, widths, shared: bool, fr: int):
-    """Mega-step dispatch: TPG*TS = 1024 slots share one fr-row window.
-
-    Step-span contract (callers enforce): within each 1024-slot step,
-    max(offset) - min(offset) <= (fr-2)*128*8 bits, so the step's fields
-    plus the 24-bit read tail fit the window even when the window start
-    is mis-aligned by up to 127 bytes.  Near the buffer end the start is
-    clamped so the slice stays in bounds (the span then trivially fits:
-    the window IS the buffer tail)."""
-    N, S = offsets.shape
-    W = TPG * TS
-    U = -(-S // W)
-    pad = U * W - S
-    if pad:
-        offsets = jnp.concatenate(
-            [offsets, jnp.broadcast_to(offsets[:, -1:], (N, pad))], axis=1)
-        widths = jnp.concatenate(
-            [widths, jnp.zeros((N, pad), jnp.int32)], axis=1)
-    rows = data_rows.shape[-2] // 3
-    fr = min(fr, rows)
-    offsets = offsets.reshape(N, U, W)
-    widths = widths.reshape(N, U, W)
-    if SPAN_CHECK:
-        _check_spans("bits", offsets, (fr - 2) * 128 * 8)
-    starts = offsets.min(axis=2) >> 10
-    starts = jnp.minimum(starts, rows - fr)
-    # narrow wire forms (see _kernel_mega): window-relative i16 offsets,
-    # i8 widths -- the casts fuse into the XLA producers
-    rel = (offsets - (starts << 10)[..., None]).astype(jnp.int16)
-    out = _build_mega(N, U, rows, shared, fr)(
-        starts.reshape(N, 1, U), data_rows, rel,
-        widths.astype(jnp.int8))
-    return out.reshape(N, U * W)[:, :S]
-
-
-@lru_cache(maxsize=64)
-def _build(N: int, T: int, rows: int, shared: bool, win_rows: int,
-           flat: int):
-    byte_idx = ((lambda n, u: (0, 0, 0)) if shared
-                else (lambda n, u: (n, 0, 0)))
-    grid_spec = pl.GridSpec(
-        grid=(N, T // TPG),
-        in_specs=[
-            pl.BlockSpec((1, 1, T), lambda n, u: (n, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, rows, 128), byte_idx),
-            pl.BlockSpec((1, TPG, TS), lambda n, u: (n, u, 0)),
-            pl.BlockSpec((1, TPG, TS), lambda n, u: (n, u, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, TPG, TS), lambda n, u: (n, u, 0)),
-    )
-    return pl.pallas_call(
-        partial(_kernel, win_rows, flat),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((N, T, TS), jnp.int32),
-        # Mosaic on TPU; interpreter everywhere else (CPU test backend)
-        interpret=INTERPRET or jax.default_backend() != "tpu",
-    )
-
-
-def _to_planes(data, slack_rows):
-    """[*, MB] uint8 -> [*, 3*rows, 128] f32 of pre-scaled byte planes:
-    plane0[p] = b[p]*2^16, plane1[p] = b[p+1]*2^8, plane2[p] = b[p+2],
-    row-INTERLEAVED: image row 3*r+p holds plane p of byte-row r, so the
-    kernel's window is one dynamic slice.  Stored f32 (dynamic-start
-    sublane slices need the f32 layout); each value is an 8-bit integer
-    times a power of two -- exact in the bf16 the kernel casts to."""
+def _windows(data):
+    """[N, MB] uint8 -> [N, MB] int32 of 24-bit windows
+    b[p]<<16 | b[p+1]<<8 | b[p+2] (zero past the buffer end)."""
+    d = jnp.pad(data, ((0, 0), (0, 2))).astype(jnp.int32)
     MB = data.shape[-1]
-    rows = -(-(MB + 2) // 128) + slack_rows
-    pad = rows * 128 + 2 - MB
-    d = jnp.pad(data, [(0, 0)] * (data.ndim - 1)
-                + [(0, pad)]).astype(jnp.float32)
-    lead = data.shape[:-1]
-    n = rows * 128
-    planes = jnp.stack([d[..., :n] * np.float32(65536.0),
-                        d[..., 1:n + 1] * np.float32(256.0),
-                        d[..., 2:n + 2]], axis=-2)        # [*, 3, n]
-    planes = planes.reshape(lead + (3, rows, 128))
-    planes = jnp.swapaxes(planes, -3, -2)                 # [*, rows, 3, 128]
-    return planes.reshape(lead + (3 * rows, 128))
-
-
-def _run(data_rows, offsets, widths, shared: bool, win_rows: int,
-         flat: int):
-    N, S = offsets.shape
-    T = -(-S // (TPG * TS)) * TPG
-    pad = T * TS - S
-    if pad:
-        offsets = jnp.concatenate(
-            [offsets, jnp.broadcast_to(offsets[:, -1:], (N, pad))], axis=1)
-        widths = jnp.concatenate(
-            [widths, jnp.zeros((N, pad), jnp.int32)], axis=1)
-    # window row per tile, from the tile MIN: offsets need not be fully
-    # monotone within a tile (dither rank lattices sawtooth by a few
-    # slots), only bounded -- the span must still fit the window
-    starts = (offsets.reshape(N, T, TS).min(axis=2) >> 10).reshape(N, 1, T)
-    offsets = offsets.reshape(N, T, TS)
-    if SPAN_CHECK:
-        _check_spans("tile", offsets, (flat - 128 - 3) * 8)
-    widths = widths.reshape(N, T, TS)
-    rows = data_rows.shape[1]
-    out = _build(N, T, rows, shared, win_rows, flat)(
-        starts, data_rows, offsets, widths)
-    return out.reshape(N, T * TS)[:, :S]
-
-
-# Dispatch knob: the mega-step kernel (one shared window + one MXU pass
-# per 1024 slots) vs the per-tile form (8 batched tiny matmuls per grid
-# step).  Mega measures ~8x fewer MXU passes at raw-unpack shapes; the
-# per-tile form stays for A/B and as the fallback while offsets violate
-# the wider step-span contract (no production caller does).
-MEGA = True
-
-# mega window rows: (fr-2)*128 = 2816 bytes of usable span per 1024-slot
-# step.  Worst-case span bound for the lattices dispatched here:
-#   * mantissa codes: offsets are monotone in coded order; 1024 live
-#     slots consume <= 16 bits each = 2048 B, plus ONE inter-block jump
-#     when a step straddles a block boundary (per-block side info ahead
-#     of the next mantissa region: exponents <= ~530 B + bai/deltba/skip
-#     <= ~60 B) -> <= 2648 B,
-#   * exponents: one step never covers more than one block/point
-#     (ops.unpack_device pads multi-point frames to 1024 slots/point),
-#     and one block's exponent fields span <= 7*602 bits = 527 B.
-# Both fit 2816 with margin.  The non-monotone cpl-dither rank lattice
-# does NOT ride this kernel (it dispatches to the per-tile form whose
-# 128-slot tiles never straddle its segment boundaries).  VMEM cost is
-# fr*3 rows = 36 KB: negligible.
-MEGA_FR = 24
-
-# Debug span guard (tests): when True, every mega-step dispatch checks
-# the per-step offset span against the window contract and records
-# violations in SPAN_VIOLATIONS via jax.debug.callback (works eagerly
-# and under jit/interpret).  Off in production: the layouts above make
-# the contract structural, and the check costs a host sync.
-SPAN_CHECK = False
-SPAN_VIOLATIONS: list = []
-
-
-def _record_span(tag, max_span, limit):
-    if int(max_span) > int(limit):
-        SPAN_VIOLATIONS.append((tag, int(max_span), int(limit)))
-
-
-def _check_spans(tag, offsets_nuw, usable):
-    """offsets_nuw [N, U, W]; usable = max allowed (max-min) per step,
-    in the offsets' own units (bits for bitfields, entries for i16)."""
-    span = (offsets_nuw.max(axis=2) - offsets_nuw.min(axis=2)).max()
-    jax.debug.callback(partial(_record_span, tag), span, usable)
-
-
-def as_u16(codes):
-    """Reinterpret extract_fields' int16 wire values as unsigned int32.
-    Fuses into the consumer's first elementwise op."""
-    return codes.astype(jnp.int32) & 0xFFFF
+    return (d[:, :MB] << 16) | (d[:, 1:MB + 1] << 8) | d[:, 2:MB + 2]
 
 
 def extract_fields(data, offsets, widths):
     """data [N, MB] uint8; offsets/widths [N, S] int32 (bit offsets,
-    widths 0..16).  Returns [N, S] int16 field values carrying the
-    unsigned 16-bit pattern -- reinterpret with as_u16 (values < 2^15
-    may be used directly).
-
-    Requirements (ops.unpack_device enforces):
-      * offsets within each 1024-slot step span <= (MEGA_FR-2)*128 bytes
-        past the step minimum (per 128-slot tile and 512-byte window in
-        the per-tile fallback),
-      * inactive slots carry a nearby active offset (width 0 -> value 0).
-    """
-    if MEGA:
-        return _run_mega(_to_planes(data, 5), offsets, widths,
-                         shared=False, fr=MEGA_FR)
-    return _run(_to_planes(data, 5), offsets, widths, shared=False,
-                win_rows=5, flat=512).astype(jnp.int16)
+    widths 0..16).  Returns [N, S] int32 unsigned field values; a width-0
+    slot reads 0 whatever its offset."""
+    win = jnp.take_along_axis(_windows(data), offsets >> 3, axis=1,
+                              mode="clip")
+    shift = 24 - (offsets & 7) - widths
+    return (win >> shift) & ((jnp.int32(1) << widths) - 1)
 
 
-def extract_fields_shared(table, offsets, widths=None, span_rows=14,
-                          per_tile=False):
-    """Gather 16-bit fields from ONE shared byte table for all rows.
-
-    table [TB] uint8; offsets [N, S] int32 bit offsets.  Returns int16
-    wire values (see extract_fields; reinterpret with as_u16).  Mega
-    form: the 1024-slot step-span contract of extract_fields applies
-    (the caller's per-step min-rebase must use 1024-slot groups).
-    Per-tile form (per_tile=True, or MEGA off): per 128-slot tile the
-    offsets may span up to (span_rows-3)*128 bytes -- callers whose
-    layouts are only tile-wise bounded (the cpl-dither rank lattice)
-    MUST pass per_tile=True."""
-    N, S = offsets.shape
-    if widths is None:
-        widths = jnp.full((N, S), 16, jnp.int32)
-    if MEGA and not per_tile:
-        tab = _to_planes(table[None, :], 5)
-        return _run_mega(tab, offsets, widths, shared=True, fr=MEGA_FR)
-    tab = _to_planes(table[None, :], span_rows)
-    flat = (span_rows - 2) * 128
-    return _run(tab, offsets, widths, shared=True, win_rows=span_rows,
-                flat=flat).astype(jnp.int16)
+def extract_i16_table(table, index):
+    """Gather 16-bit values from ONE shared table at per-slot entry
+    indices: table [TB] (any 16-bit dtype), index [N, S] int32 ->
+    [N, S] int16 (the table's bit pattern, signed)."""
+    tab = jnp.asarray(np.asarray(table).view(np.int16))
+    return jnp.take(tab, index, mode="clip")
 
 
 def reference_extract(data: np.ndarray, offsets: np.ndarray,

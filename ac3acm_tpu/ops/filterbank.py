@@ -1,4 +1,4 @@
-"""Device IMDCT filterbank: one MXU matmul + windowed overlap-add.
+"""Device IMDCT filterbank: one matmul + windowed overlap-add.
 
 The full 512/256-pt IMDCT (pre-twiddle, split-radix IFFT, post-twiddle) is a
 linear map of the 256 coefficients, so the hot path is

@@ -1,6 +1,6 @@
 """Order-exact IMDCT filterbank: bit-identical output for every sample type.
 
-The MXU matmul filterbank (ops/filterbank.py) is the throughput path; its
+The matmul filterbank (ops/filterbank.py) is the fast-mode path; its
 dot-product summation order differs from the reference's split-radix IFFT,
 leaving ~1 ulp discrepancies.  This module replays the reference's exact
 evaluation order (imdct.c:77-345: the djbfft-style ifft2/4/8/pass butterfly
@@ -18,8 +18,7 @@ axis the reference expresses as SAMPLE/MUL macros, a52_internal.h:124-163):
     reproduced with int32 two's-complement ops; tables are
     SAMPLE()-truncated to Q30.  Bit-exact vs the -DLIBA52_FIXED build.
 
-Used for the bit-matching decode modes (BASELINE north star) and as the
-strongest test oracle; roughly VPU-bound, still thousands of x realtime.
+Used for the bit-matching decode modes and as the strongest test oracle.
 """
 from __future__ import annotations
 
@@ -33,13 +32,13 @@ from .. import tables as T
 
 
 @lru_cache(maxsize=4)
-def _backend_contracts_fma(backend: str) -> bool:
-    """Empirical once-per-backend probe: does this backend's compiled
+def backend_contracts_fma(platform: str) -> bool:
+    """Empirical once-per-platform probe: does this platform's compiled
     code FMA-contract f32 mul+add chains (skipping the product rounding
-    the reference performs)?  Measured: XLA:CPU contracts (LLVM emits
-    fmuladd -- jit(a*b + c*d) deviates from the separately-rounded value
-    by ~1 ulp of the terms); XLA:TPU does not (probe reads 0.0 on real
-    v5e).  The probe compares a compiled mul+add+add chain against
+    the reference performs)?  Measured on XLA:CPU: it contracts (LLVM
+    emits fmuladd -- jit(a*b + c*d) deviates from the separately-rounded
+    value by ~1 ulp of the terms).  The probe compares a compiled
+    mul+add+add chain, placed on the platform's first device, against
     numpy's correctly-rounded single-op arithmetic."""
     rng = np.random.default_rng(12345)
     a, b, c, d = ((rng.standard_normal(1024) * 4).astype(np.float32)
@@ -53,7 +52,11 @@ def _backend_contracts_fma(backend: str) -> bool:
     # the first call often happens while TRACING a caller's jit; a plain
     # jax.jit call would inline into that trace, so lower+compile to an
     # executable and invoke it directly (runs eagerly in any context)
-    exe = jax.jit(f, backend=backend).lower(a, b, c, d).compile()
+    dev = jax.sharding.SingleDeviceSharding(
+        jax.local_devices(backend=platform)[0])
+    spec = jax.ShapeDtypeStruct(a.shape, a.dtype)
+    exe = jax.jit(f, in_shardings=dev, out_shardings=dev).lower(
+        spec, spec, spec, spec).compile()
     got = np.asarray(exe(a, b, c, d))
     return bool((got != strict2).any())
 
@@ -75,13 +78,13 @@ def _mul_float(a, b):
         longer a bare fmul so it cannot contract into a downstream add.
         (Barrier-wrapping the product itself does NOT work: the CPU
         fusion emitter contracts straight through it -- measured.)  Only
-        visible change: a -0.0 product becomes +0.0.  On TPU the probe
-        shows no contraction and the guard is skipped so the exact path
+        visible change: a -0.0 product becomes +0.0.  Where the probe
+        shows no contraction the guard is skipped so the exact path
         keeps fusing freely.
     """
     p = (a.astype(jnp.float64) * b).astype(jnp.float32)
     if (not jax.config.jax_enable_x64
-            and _backend_contracts_fma(jax.default_backend())):
+            and backend_contracts_fma(jax.default_backend())):
         p = p + jax.lax.optimization_barrier(jnp.float32(0.0))
     return p
 
@@ -356,10 +359,10 @@ def _build(variant: str):
 
     # exact permutation matmuls (float only) --------------------------------
     #
-    # XLA's gather/scatter lowering for static lane permutations is
-    # catastrophically slow at production batch shapes on TPU (measured:
-    # the fftorder take pair costs 600x a HIGHEST matmul against a {0,1}
-    # permutation matrix; the strided .at[].set z-scatter 20x).  A
+    # Static lane permutations as matmuls against {0,+-1} matrices instead
+    # of take/scatter: written for a compiler whose gather lowering was
+    # slow at batch shapes; on the GPU the two forms have not been timed
+    # against each other (ROADMAP A5).  A
     # {0,+-1} matrix at Precision.HIGHEST is BITWISE exact: the operand
     # decomposes into bf16 limbs of disjoint significand bits (an exact
     # real decomposition), each limb times 0/+-1 is exact, and summing

@@ -10,8 +10,8 @@ code stores through a short.  Everything is batched over leading axes --
 the per-stage butterflies are pure gathers/elementwise ops on the VPU, and
 six blocks x channels x streams vectorize together.
 
-(The *decoder* filterbank is float and lives in ops/filterbank.py as an
-MXU matmul; this int path is encode-only, where the contract is bit-exact
+(The *decoder* filterbank is float and lives in ops/filterbank.py as a
+matmul; this int path is encode-only, where the contract is bit-exact
 frames rather than FLOPs.)
 """
 from __future__ import annotations
@@ -91,7 +91,7 @@ def _fft128(re, im):
     # passes 2..6: gather/scatter-free -- each stage's (p, q) lanes are a
     # pure [nblocks, 2, half] reshape view (position j*2*half + k*half + t),
     # so the butterflies are strided-slice reads + a stack/reshape write.
-    # TPU lowering: relayouts + elementwise, no serializing scatter.
+    # relayouts + elementwise, no serializing scatter
     lead = re.shape[:-1]
     for s in range(2, NBITS):
         half = 1 << s                 # butterflies per group

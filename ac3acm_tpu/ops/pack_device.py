@@ -1,4 +1,4 @@
-"""Device-side AC-3 frame assembly: the bit-packer as a TPU kernel.
+"""Device-side AC-3 frame assembly: the bit-packer as a device program.
 
 The reference's serial put_bits loop (ac3enc.cpp:1194-1638) reborn as data
 parallelism: every frame is a *static schedule* of bit tokens (the token
@@ -9,7 +9,7 @@ values are data), so the whole frame assembles as
     token values  -> two-word shifted deposit (disjoint bits: add == or)
     CRC1/CRC2     -> GF(2)-linear maps of the payload bits: a STATIC 0/1
                      parity matrix contracted with the payload-bit vector
-                     on the MXU, parity taken mod 2 (the pow_poly crc1
+                     in one matmul, parity taken mod 2 (the pow_poly crc1
                      back-patch of ac3enc.cpp:1599-1638 folds into the
                      matrix at trace time)
 
@@ -19,13 +19,14 @@ tests/test_encoder.py).  This removes both the host bit-packing cost and
 the dense-field device->host transfer (qmant/exp/bap ~55 KB/frame vs
 2*frame_size bytes of finished frame).
 
-TPU shape notes (measured on v5e): lax.cumsum and dynamic gathers are the
-slow paths here -- prefix sums run as log-shift adds (~600x faster than
-cumsum on these shapes), the grouped-mantissa combine uses a pointer-
+Shape notes: the program avoids lax.cumsum and dynamic gathers -- prefix
+sums run as log-shift adds, the grouped-mantissa combine uses a pointer-
 doubling "first two class members after me" scan (selects only, no
 gather), exponent-delta chains use static strided slices per strategy and
 a select, and the token stream is assembled by concatenation in schedule
-order rather than index-map gathers.
+order rather than index-map gathers.  These choices were made for another
+compiler; their cost on the GPU against plain cumsum/gather forms has not
+been measured.
 
 Grouped mantissas (3-in-5-bits, 3-in-7, 2-in-7 with cross-channel carry,
 ac3enc.cpp:1347-1501): a head at class-ordinal k (ordinal % gsize == 0)
@@ -108,8 +109,7 @@ def _header_bits(cfg):
 # ---------------------------------------------------------------------------
 
 def _psum_incl(x, chunk=32):
-    """Inclusive prefix sum along the last axis as log-shift adds
-    (lax.cumsum measures ~26 ms on these shapes; this measures ~0.04 ms).
+    """Inclusive prefix sum along the last axis as log-shift adds.
     Keeps the input dtype -- callers pick the narrowest width that can
     hold the final sum (HBM traffic, not FLOPs, bounds these scans).
 
@@ -164,15 +164,12 @@ def _first_two_after(q, m):
         out8 = a8 | (b8 >> 4*ac),  outc = min(ac + bc, 2)
 
     -- no per-field selects, ~16 ops/class/step vs ~25 for the naive
-    (v1, v2, cnt) select form.  (XLA:TPU widens sub-32-bit integer
-    lanes, so three separate uint8 arrays would move ~9 int32-lane
-    arrays per doubling step vs one here.)
+    (v1, v2, cnt) select form, and one int32 array per doubling step.
 
     Work-efficient two-level suffix scan: log2(16) full-lane doubling
     steps within 16-wide chunks, a chunk-summary suffix scan on 1/16 of
     the lanes, then ONE full-lane combine -- 5 full-lane monoid steps
-    instead of log2(n)=11 (together with the compacted live-coefficient
-    layout: _mant_tokens 49.5 -> ~20 ms at the c4 shape)."""
+    instead of log2(n)=11."""
     OFF = (0, 10, 20)
 
     def fld(x, o, w):
@@ -224,42 +221,6 @@ def _first_two_after(q, m):
     v2 = jnp.stack([fld(x, o, 4) for o in OFF], axis=-2)
     cnt = jnp.stack([fld(x, o + 8, 2) for o in OFF], axis=-2)
     return v1, v2, cnt
-
-
-def _deposit_batched(planes, w, nwords: int):
-    """Batched byte-plane deposit: acc[n, p, word] = sum over tokens t of
-    planes[n, p, t] where w[n, t] == word.
-
-    planes [N, 8, T] bfloat16 (the 4 byte planes of p0 then of p1,
-    values <= 255 so bf16 is exact), w [N, T] int32
-    -> [N, 8, nwords] float32.
-
-    The word index factors as w = hi*W2 + lo, splitting the deposit into
-    two one-hots: the lo one-hot folds into the plane axis (8 planes x
-    W2 residues = MXU rows) and the hi one-hot shrinks W2-fold.  Neither
-    is materialized in HBM (XLA fuses the compares into the
-    contraction's operand loads).
-
-    W2 = 8 is the measured optimum at the c4 shape ([4096, 8, 7680] x
-    1282 words, on chip): 28.6 ms.  W2 = 16 looks better on a pure
-    MXU-cycle model (M = 128 fills one row tile, one N tile) but
-    measures 55.1 ms -- XLA stops fusing the [N, 8*W2, T] lhs
-    broadcast-multiply at that size and materializes ~12 GB through
-    HBM.  A VMEM-resident Pallas formulation and the flat
-    [N,8,T] x [N,T,W] einsum also measured slower (17 / 12.6-15.4 ms at
-    the smaller r3 shape)."""
-    N = planes.shape[0]
-    W2 = 8
-    W1 = (nwords + W2 - 1) // W2
-    ohlo = ((w & (W2 - 1))[:, None, :]
-            == jnp.arange(W2)[:, None]).astype(jnp.bfloat16)   # [N,W2,T]
-    lhs = (planes[:, :, None, :] * ohlo[:, None, :, :]).reshape(
-        N, 8 * W2, -1)                                         # [N,64,T]
-    ohhi = ((w // W2)[:, :, None] == jnp.arange(W1)).astype(jnp.bfloat16)
-    acc = jnp.einsum("nkt,ntw->nkw", lhs, ohhi,
-                     preferred_element_type=jnp.float32)       # [N,64,W1]
-    acc = acc.reshape(N, 8, W2, W1).transpose(0, 1, 3, 2)
-    return acc.reshape(N, 8, W1 * W2)[:, :, :nwords]
 
 
 _GROUP_CLASSES = ((1, 3, 5, (9, 3, 1)), (2, 3, 7, (25, 5, 1)),
@@ -391,7 +352,7 @@ def pack_frames_device(cfg):
 
     # CRC parity matrices: bit k of the CRC is the GF(2) sum (= parity)
     # of h[i,j] bit k over the set payload bits (i,j) -- an integer
-    # matmul mod 2, so the XOR fold becomes one [T,16] MXU contraction
+    # matmul mod 2, so the XOR fold becomes one [T,16] contraction
     # of the payload-bit vector with a STATIC 0/1 matrix (exact in bf16,
     # sums <= T < 2^24 exact in f32)
     def parity_matrix(h):
@@ -517,7 +478,7 @@ def pack_frames_device(cfg):
         lens = (l0 + l1).astype(jnp.int16)
         vals = (v0 << l1.astype(jnp.uint32)) | v1
 
-        # ---- deposit: prefix-sum offsets + one-hot MXU contraction -------
+        # ---- deposit: prefix-sum offsets -> (word, p0, p1) per token -------
         # combined token lengths reach 32 bits: still a two-word deposit
         # (sh + len <= 31 + 32 < 64)
         off = _psum_incl(lens) - lens          # int16: max 30720 bits
@@ -534,16 +495,6 @@ def pack_frames_device(cfg):
             fits, jnp.uint32(0),
             vals << jnp.where(fits, 0, (jnp.uint32(64) - sh - lu) & 31))
         return w, p0, p1
-
-    def combine_acc(acc):
-        """Byte-plane accumulators [..., 8, NW] uint32 -> words
-        [..., NW]; p1 bits belong to the word after their token's."""
-        w0 = sum((acc[..., b, :] << jnp.uint32(24 - 8 * b))
-                 for b in range(4))
-        w1 = sum((acc[..., 4 + b, :] << jnp.uint32(24 - 8 * b))
-                 for b in range(4))
-        z = jnp.zeros(w1.shape[:-1] + (1,), jnp.uint32)
-        return w0 + jnp.concatenate([z, w1[..., :-1]], axis=-1)
 
     def finish(words):
         """words [NW] uint32 -> the serial frame [total] uint8."""
@@ -574,12 +525,10 @@ def pack_frames_device(cfg):
         all_bytes = all_bytes.at[total - 1].set(crc2 & 0xFF)
         return all_bytes.astype(jnp.uint8)
 
-    def one_cpu(bap, qmant, enc_exp, strat, csnr, fsnr):
-        # CPU: plain scatter-add -- the natural lowering there (no
-        # serialization problem, far fewer fusions than the batched
-        # deposit, and every fusion costs live mmaps on XLA:CPU).
-        # Identical bits to the TPU path: contributions are disjoint, so
-        # add == or.
+    def one_frame(bap, qmant, enc_exp, strat, csnr, fsnr):
+        """One frame, deposited by scatter-add: contributions are
+        disjoint bits, so add == or.  Token offsets are a prefix sum of
+        non-negative lengths, so the word indices are sorted."""
         w, p0, p1 = tokens(bap, qmant, enc_exp, strat, csnr, fsnr)
         words = jnp.zeros((nwords,), jnp.uint32)
         words = words.at[w].add(p0, mode="promise_in_bounds",
@@ -589,33 +538,9 @@ def pack_frames_device(cfg):
         return finish(words)
 
     def fn(bap, qmant, enc_exp, strat, csnr, fsnr):
-        # all leading axes collapse to ONE flat batch: the Pallas deposit
-        # owns the batch axis (16 frames per grid instance), and nested
-        # vmap of a pallas_call silently miscomputes under the current
-        # batching rule (caught by the mono byte-identity check)
-        lead = bap.shape[:-3]
-        args = (bap, qmant, enc_exp.astype(jnp.uint8), strat, csnr, fsnr)
-        nl = len(lead)
-        if jax.default_backend() != "tpu":
-            f = one_cpu
-            for _ in lead:
-                f = jax.vmap(f)
-            return f(*args)
-        if not nl:
-            args = [a[None] for a in args]
-        n = int(np.prod(lead)) if nl else 1
-        flat = [a.reshape((n,) + a.shape[max(nl, 1):]) for a in args]
-        w, p0, p1 = jax.vmap(tokens)(*flat)               # [N, T] each
-        # byte planes of (p0, p1): values <= 255, exact in bf16; bits
-        # are disjoint within a word so every byte-plane column sums to
-        # <= 255 (no carries) and f32 accumulation is exact
-        byte_sh = jnp.asarray(np.array([24, 16, 8, 0], np.uint32))
-        planes = jnp.concatenate(
-            [((p0[:, None, :] >> byte_sh[None, :, None]) & 0xFF),
-             ((p1[:, None, :] >> byte_sh[None, :, None]) & 0xFF)],
-            axis=1).astype(jnp.bfloat16)                  # [N, 8, T]
-        acc = _deposit_batched(planes, w, nwords).astype(jnp.uint32)
-        out = jax.vmap(finish)(combine_acc(acc))
-        return out.reshape(lead + out.shape[1:]) if nl else out[0]
+        f = one_frame
+        for _ in bap.shape[:-3]:                  # any leading batch axes
+            f = jax.vmap(f)
+        return f(bap, qmant, enc_exp.astype(jnp.uint8), strat, csnr, fsnr)
 
     return jax.jit(fn)

@@ -2,7 +2,7 @@
 
 The raw-H2D decode path ships each lane's coded frame bytes plus a small
 per-block side-info record (ac3acm_tpu.host.parse.A52Parser(record_raw=
-True)) and reconstructs everything else on the TPU:
+True)) and reconstructs everything else on the device:
 
     exponent fields --bitgather--> grouped deltas --cumsum--> exp[row, bin]
     exp + side-info --ops.alloc--> bap[row, bin]           (recompute-always)
@@ -16,8 +16,8 @@ True)) and reconstructs everything else on the TPU:
 Reference semantics: /root/reference/a52dec-0.7.5-cvs/liba52/parse.c
 (parse_exponents:218, coeff_get:336, coeff_get_coupling:435,
 dither_gen:310) and bit_allocate.c:124-265 -- all re-expressed as
-batched, gather-free tensor programs (the only gathers are the Pallas
-windowed bitfield kernels in ops.bitgather and a per-block row gather
+batched tensor programs (the only gathers are the bitfield gathers of
+ops.bitgather, the dither-orbit table lookup and a per-block row gather
 for EXP_REUSE).
 
 Everything is shaped [L, S, ...] with L = lanes and S = 6 * nframes
@@ -45,7 +45,7 @@ import numpy as np
 
 from .. import tables as T
 from . import alloc as A
-from .bitgather import as_u16, extract_fields, extract_fields_shared
+from .bitgather import extract_fields, extract_i16_table
 
 # fixed-7 logical row convention (carry + wire meta): fbw0..4, cpl, lfe
 EXP_ROW_SLOTS = 86           # abs + 85 groups per row
@@ -79,11 +79,11 @@ class RowPlan(NamedTuple):
     exp_pts: int = 6
     alloc_pts: int = 6
     # mantissa-gather trim (static, from static_emax): per-channel fbw
-    # gather extent.  The windowed bitfield gather costs ~1 MXU cycle
-    # per SLOT regardless of width, so slots past every stream's endmant
-    # (dead by construction: w=0, forward-filled offsets) are pure
-    # waste; the gather runs on [0:emax) of each channel (+ 64 LFE
-    # slots) and the codes re-expand with zeros.  256 = no trim.  Only
+    # gather extent.  The bitfield gather costs the same per SLOT
+    # whatever its width, so slots past every stream's endmant (dead by
+    # construction: w=0) are pure waste; the gather runs on [0:emax) of
+    # each channel (+ 64 LFE slots) and the codes re-expand with zeros.
+    # 256 = no trim.  Only
     # consulted by the no-coupling layouts (coupled channels already
     # stop at cplstrtmant; the interleaved/compact cpl layouts keep the
     # full stride).
@@ -123,12 +123,6 @@ class RowPlan(NamedTuple):
     def l2s(self):
         """Active-row index -> stream position (inverse of s2l)."""
         return tuple(int(i) for i in np.argsort(np.asarray(self.s2l)))
-
-    @property
-    def exp_block_slots(self):
-        """Exponent slots per block, padded to a 128-multiple so gather
-        tiles never straddle a block boundary."""
-        return -(-self.R * EXP_ROW_SLOTS // 128) * 128
 
     @property
     def compact(self):
@@ -254,10 +248,11 @@ def _cummax_blocked(x, block=128):
 
 def _cumsum(x, axis=-1, exclusive=False, block=128):
     """Exact cumsum of small non-negative ints via blocked triangular
-    bf16 MXU matmuls (intra-block) + a tiny inter-block carry.
+    bf16 matmuls (intra-block) + a tiny inter-block carry.
 
-    XLA lowers cumsum over a 2688-lane axis to ~log2(n) full shifted-add
-    HBM passes; this form is ~2 passes.  Exactness contract: |x| values
+    Written for a compiler that lowered a 2688-lane cumsum to ~log2(n)
+    full shifted-add passes; on the GPU it has not been measured against
+    jnp.cumsum (ROADMAP A5/C2).  Exactness contract: |x| values
     exact in bf16 (integers with <= 8 significant bits, e.g. flags,
     field widths <= 16, exponent deltas in [-2, 2]) and running totals
     < 2^24 (exact in the f32 accumulator).  Falls back to jnp.cumsum
@@ -392,17 +387,13 @@ def widen_meta(meta: dict) -> dict:
 # stage 1: exponents
 # ---------------------------------------------------------------------------
 
-def _exp_slots(meta, man_off, plan: RowPlan):
-    """Build [L, S, R, 86] bit offsets + widths for the exponent fields.
-
-    Inactive slots are filled with a nearby active offset (forward fill,
-    leading slots from the block's first field) so every 128-slot tile
-    stays inside its 512-byte gather window."""
+def _exp_slots(meta, plan: RowPlan):
+    """Build [L, S, R, 86] bit offsets + widths for the exponent fields
+    (inactive slots get width 0 and read 0)."""
     s2l = np.asarray(plan.s2l, np.int32)
     rows7 = np.asarray(plan.rows, np.int32)
     exp_off = meta["exp_off"][..., rows7][..., s2l]      # [L, S, R] stream
     ngrps = meta["ngrps"][..., rows7][..., s2l]
-    R = plan.R
     active_row = exp_off >= 0
     g = jnp.arange(EXP_ROW_SLOTS, dtype=jnp.int32)       # slot in row
     # slot offsets: abs at +0 (4 bits), group k at +4 + 7k
@@ -410,19 +401,7 @@ def _exp_slots(meta, man_off, plan: RowPlan):
     widths = jnp.where(g == 0, 4, 7)
     live = active_row[..., None] & ((g == 0) | (g - 1 < ngrps[..., None]))
     widths = jnp.where(live, widths, 0)
-
-    L, S = exp_off.shape[:2]
-    flat_o = offs.reshape(L, S, R * EXP_ROW_SLOTS)
-    flat_l = live.reshape(L, S, R * EXP_ROW_SLOTS)
-    # forward fill inactive offsets, leading from the first active (or
-    # man_off when the block has no exponent fields at all)
-    fwd = jax.lax.cummax(jnp.where(flat_l, flat_o, -1), axis=2)
-    first = jnp.min(jnp.where(flat_l, flat_o, jnp.int32(1 << 30)), axis=2)
-    first = jnp.where(first == (1 << 30), man_off, first)
-    filled = jnp.where(fwd < 0, first[..., None], fwd)
-    filled = filled.reshape(L, S, R, EXP_ROW_SLOTS)
-    widths = widths.reshape(L, S, R, EXP_ROW_SLOTS)
-    return filled, widths
+    return jnp.maximum(offs, 0), widths
 
 
 def _interleave(deltas, fan: int, lead: int):
@@ -586,9 +565,8 @@ def _gather_blocks(x, sidx):
     """x [L, S, ...] -> [L, P, ...] rows at sidx [L, P].
 
     The index keeps SINGLETON trailing dims: XLA lowers that to a
-    row-slice gather.  An explicitly broadcast_to'd full-shape index
-    instead lowers to an elementwise gather -- measured 26x slower at
-    [1024, 16, 6, 256] (733 ms vs 28 ms on v5e)."""
+    row-slice gather, where an explicitly broadcast_to'd full-shape index
+    would lower to an elementwise gather of every element."""
     idx = sidx.reshape(sidx.shape + (1,) * (x.ndim - 2))
     return jnp.take_along_axis(x, idx, axis=1)
 
@@ -616,7 +594,7 @@ def unpack_exponents(frames_u8, meta, carry_exp, plan: RowPlan = None):
         s_set = meta["exp_off"][..., rows7] >= 0         # [L, S, R]
         has = jnp.any(s_set, axis=-1)                    # [L, S]
         sidx, pvalid, cidx = _frame_points(has, E)
-        keys = ("exp_off", "ngrps", "expstr", "man_off", "cplstrt")
+        keys = ("exp_off", "ngrps", "expstr", "cplstrt")
         mc = {k: _gather_blocks(meta[k], sidx)
               for k in keys if k in meta}
         # padding points must decode as "no exponent fields": offsets -1
@@ -626,29 +604,11 @@ def unpack_exponents(frames_u8, meta, carry_exp, plan: RowPlan = None):
         mc = meta
         Sp, blocks_per_frame = S, 6
 
-    offs, widths = _exp_slots(mc, mc["man_off"], plan)
-    offs = offs.reshape(L, Sp, R * EXP_ROW_SLOTS)
-    widths = widths.reshape(L, Sp, R * EXP_ROW_SLOTS)
-    # Gather step-span contract: a frame row with more than one
-    # block/point per frame must pad each block to a FULL 1024-slot mega
-    # step, so no step straddles two blocks.  Two exponent points can sit
-    # bytes apart bounded only by the frame size (3840 B at max rate --
-    # e.g. new exponents at blocks 0 and 5 of a mantissa-heavy frame),
-    # far beyond the (MEGA_FR-2)*128-byte window; the single-point case
-    # (640 slots, the steady production path) fits one step by itself.
-    block_slots = (plan.exp_block_slots if blocks_per_frame == 1
-                   else ((plan.exp_block_slots + 1023) // 1024) * 1024)
-    pad = block_slots - R * EXP_ROW_SLOTS
-    if pad:
-        offs = jnp.concatenate(
-            [offs, jnp.broadcast_to(offs[..., -1:], (L, Sp, pad))], axis=-1)
-        widths = jnp.concatenate(
-            [widths, jnp.zeros((L, Sp, pad), jnp.int32)], axis=-1)
-    codes = as_u16(extract_fields(
+    offs, widths = _exp_slots(mc, plan)
+    codes = extract_fields(
         frames_u8.reshape(L * F, MB),
-        offs.reshape(L * F, blocks_per_frame * block_slots),
-        widths.reshape(L * F, blocks_per_frame * block_slots)))
-    codes = codes.reshape(L, Sp, block_slots)[..., : R * EXP_ROW_SLOTS]
+        offs.reshape(L * F, blocks_per_frame * R * EXP_ROW_SLOTS),
+        widths.reshape(L * F, blocks_per_frame * R * EXP_ROW_SLOTS))
     codes = codes.reshape(L, Sp, R, EXP_ROW_SLOTS)
     exp_new = decode_exponents(codes, mc, plan)          # [L, Sp, R, 256]
 
@@ -665,12 +625,19 @@ def unpack_exponents(frames_u8, meta, carry_exp, plan: RowPlan = None):
                              valid_er, carry_exp[:, rows7], S)
 
 
-def init_unpack_carry(L: int) -> dict:
-    return {
+def init_unpack_carry(L: int, mesh=None) -> dict:
+    """Zero unpack carry for L lanes; with a mesh, placed lane-sharded
+    over 'data' like every later carry (an unplaced first carry would
+    compile the raw pipeline a second time)."""
+    carry = {
         "exp": jnp.zeros((L, 7, 256), jnp.int32),
         "cplco": jnp.zeros((L, 5, 18), jnp.float32),
         "dpos": jnp.zeros((L,), jnp.int32),
     }
+    if mesh is not None:
+        from jax.sharding import NamedSharding, PartitionSpec as P
+        carry = jax.device_put(carry, NamedSharding(mesh, P("data")))
+    return carry
 
 
 # ---------------------------------------------------------------------------
@@ -835,11 +802,12 @@ def _allocate_dense(exp, meta, plan: RowPlan):
 # stage 3: coupling coordinates + phase flags
 # ---------------------------------------------------------------------------
 
-CPLCO_BLOCK_SLOTS = 256      # 5ch x 37 fields + 18 phase bits, padded
+CPLCO_BLOCK_SLOTS = 203      # 5ch x 37 fields + 18 phase bits
 
 
 def _cplco_slots(meta):
-    """[L, S, 256] offsets/widths for the coupling-coordinate fields.
+    """[L, S, 203] offsets/widths for the coupling-coordinate fields
+    (inactive slots get width 0 and read 0).
 
     Per channel: mstrcplco (2 bits) then ncplbnd x (cplcoexp 4 + cplcomant
     4); after all channels, ncplbnd phase-flag bits (acmod 2 only)."""
@@ -864,18 +832,7 @@ def _cplco_slots(meta):
 
     offs_all = jnp.concatenate([offs.reshape(L, S, 185), ph_offs], -1)
     w_all = jnp.concatenate([w.reshape(L, S, 185), ph_w], -1)
-    live_all = jnp.concatenate([live.reshape(L, S, 185), ph_live], -1)
-
-    fwd = jax.lax.cummax(jnp.where(live_all, offs_all, -1), axis=2)
-    first = jnp.min(jnp.where(live_all, offs_all, jnp.int32(1 << 30)),
-                    axis=2)
-    first = jnp.where(first == (1 << 30), meta["man_off"], first)
-    filled = jnp.where(fwd < 0, first[..., None], fwd)
-    pad = CPLCO_BLOCK_SLOTS - 203
-    filled = jnp.concatenate(
-        [filled, jnp.broadcast_to(filled[..., -1:], (L, S, pad))], -1)
-    w_all = jnp.concatenate([w_all, jnp.zeros((L, S, pad), jnp.int32)], -1)
-    return filled, w_all
+    return jnp.maximum(offs_all, 0), w_all
 
 
 def unpack_cplco(frames_u8, meta, carry_cplco):
@@ -887,10 +844,10 @@ def unpack_cplco(frames_u8, meta, carry_cplco):
     L, F, MB = frames_u8.shape
     S = 6 * F
     offs, widths = _cplco_slots(meta)
-    codes = as_u16(extract_fields(
+    codes = extract_fields(
         frames_u8.reshape(L * F, MB),
         offs.reshape(L * F, 6 * CPLCO_BLOCK_SLOTS),
-        widths.reshape(L * F, 6 * CPLCO_BLOCK_SLOTS)))
+        widths.reshape(L * F, 6 * CPLCO_BLOCK_SLOTS))
     codes = codes.reshape(L, S, CPLCO_BLOCK_SLOTS)
 
     c = codes[..., :185].reshape(L, S, 5, 37)
@@ -951,23 +908,16 @@ def _chain(idx, levels):
 
 @lru_cache(maxsize=1)
 def _dither_orbit_u16() -> np.ndarray:
-    """LFSR orbit (period 65535) as u16 states, doubled for wrap-free
-    windowed gathers.  Draw k starting from state 1 returns orbit[k]
-    (dither_gen semantics, parse.c:310-319)."""
+    """LFSR orbit (period 65535) as u16 states.  Draw k starting from
+    state 1 returns orbit[k mod 65535] (dither_gen semantics,
+    parse.c:310-319)."""
     lut = np.asarray(T.dither_lut(), np.uint32)
     vals = np.empty(65535, np.uint16)
     s = 1
     for k in range(65535):
         s = int(lut[s >> 8] ^ ((s << 8) & 0xFFFF))
         vals[k] = s
-    return np.concatenate([vals, vals])
-
-
-@lru_cache(maxsize=1)
-def _dither_orbit_bytes() -> np.ndarray:
-    """Big-endian byte view of the doubled orbit (per-tile fallback)."""
-    return np.frombuffer(_dither_orbit_u16().astype(">u2").tobytes(),
-                         np.uint8)
+    return vals
 
 
 def _first_cpl(chincpl, nfch):
@@ -1158,15 +1108,11 @@ def unpack_mantissas(frames_u8, exp, bap, cplco, meta, carry_dpos,
 
     trim = (not plan.has_cpl) and (plan.emax < 256 or plan.has_lfe)
     if trim:
-        # drop dead gather slots (VERDICT r4 #4: the gather costs ~1 MXU
-        # cycle/slot, so slots past the chunk's max endmant -- and LFE
-        # slots past 64 (only 7 are ever live) -- are pure waste): run
-        # the windowed gather on per-channel [0:emax) prefixes and
-        # re-expand the codes with zeros.  Dead slots have w=0 and
-        # forward-filled offsets, so dropping them changes no other
-        # slot's extraction; offsets stay monotone, and removing
-        # zero-advance slots only tightens toward the all-live span
-        # bound the mega window already covers (ops/bitgather.py).
+        # drop dead gather slots (slots past the chunk's max endmant --
+        # and LFE slots past 64, of which only 7 are ever live -- have
+        # w=0): run the gather on per-channel [0:emax) prefixes and
+        # re-expand the codes with zeros.  Dropping a width-0 slot
+        # changes no other slot's extraction.
         em = plan.emax
         parts = [(c * 256, em) for c in range(nfch)]
         if plan.has_lfe:
@@ -1177,10 +1123,10 @@ def unpack_mantissas(frames_u8, exp, bap, cplco, meta, carry_dpos,
                                    axis=-1)
 
         segc = sum(n for _, n in parts)
-        codes_c = as_u16(extract_fields(
+        codes_c = extract_fields(
             frames_u8.reshape(L * F, MB),
             compact_slots(offsets).reshape(L * F, 6 * segc),
-            compact_slots(w).reshape(L * F, 6 * segc))).reshape(L, S, segc)
+            compact_slots(w).reshape(L * F, 6 * segc)).reshape(L, S, segc)
         pieces = []
         pos = 0
         for (o, n) in parts:
@@ -1191,10 +1137,10 @@ def unpack_mantissas(frames_u8, exp, bap, cplco, meta, carry_dpos,
             pos += n
         codes = jnp.concatenate(pieces, axis=-1)
     else:
-        codes = as_u16(extract_fields(
+        codes = extract_fields(
             frames_u8.reshape(L * F, MB),
             offsets.reshape(L * F, 6 * seg),
-            w.reshape(L * F, 6 * seg))).reshape(L, S, seg)
+            w.reshape(L * F, 6 * seg)).reshape(L, S, seg)
 
     # grouped-class leader propagation (quantizer_set_t carries,
     # parse.c:43-50): forward-fill the leader's code along the lattice.
@@ -1242,9 +1188,8 @@ def unpack_mantissas(frames_u8, exp, bap, cplco, meta, carry_dpos,
         if plan.has_cpl:
             ord_fbw, ord_cpl, _ = _split_lattice(abs_ord, plan, fc)
             rankN = jnp.arange(nfch, dtype=jnp.int32)
-            # clamp unused ranks (>= ndith) to the last live draw: keeps
-            # the tile span tight for the windowed gather (tiles window
-            # off their min offset; the span must stay in the window)
+            # unused ranks (>= ndith) are never read; clamp them to the
+            # last live draw
             rmax = jnp.maximum(ndith - 1, 0)[..., None, None]
             d_off = jnp.concatenate(
                 [ord_fbw.reshape(L, S, nfch * 256),
@@ -1254,53 +1199,9 @@ def unpack_mantissas(frames_u8, exp, bap, cplco, meta, carry_dpos,
         else:
             d_off = abs_ord[..., : nfch * 256]
             dseg = nfch * 256
-        d_off = d_off.reshape(L * F, 6 * dseg)
-        # per-group wrap rebase into the doubled orbit table (group MIN
-        # keeps every rebased entry nonnegative under the rank-lattice
-        # sawtooth).  The group width must match the gather kernel's
-        # window grouping: 1024-slot mega steps (or 128-slot tiles in
-        # the per-tile form).
-        #
-        # Kernel dispatch: the has_cpl layout (all fbw bins, then cpl
-        # bin-major) is NOT ordinal-monotone -- fbw channels after the
-        # coupling carrier hold ordinals larger than every cpl ordinal,
-        # so a 1024-entry mega step straddling the fbw-tail/cpl boundary
-        # (dseg = 2*nfch*256 is not a 1024-multiple) can span up to
-        # ~2300 entries, past the (MEGA_FR_I16-1)*128 = 1408-entry
-        # window.  128-slot tiles never straddle those boundaries (every
-        # segment is a 256-entry multiple) and advance <= ~1 entry/slot
-        # plus a <= nfch rank sawtooth inside one tile, so the cpl
-        # layout dispatches to the per-tile kernel; the monotone no-cpl
-        # layout keeps the mega fast path.
-        from .bitgather import MEGA, extract_i16_table
-        use_mega = MEGA and not plan.has_cpl
-        G = 1024 if use_mega else 128
-        Sd = d_off.shape[1]
-        padn = (-Sd) % G
-        if padn:
-            d_off = jnp.concatenate(
-                [d_off, jnp.broadcast_to(d_off[:, -1:], (L * F, padn))],
-                axis=1)
-        d_t = d_off.reshape(L * F, -1, G)
-        tmin = d_t.min(axis=-1, keepdims=True)
-        if use_mega:
-            # aligned-16-bit fast path: gather orbit VALUES by entry
-            # index (2 exact byte planes, no widths wire, no shift/mask)
-            d_t = (tmin % 65535) + (d_t - tmin)
-            states = extract_i16_table(
-                _dither_orbit_u16(),
-                d_t.reshape(L * F, Sd + padn))[:, :Sd].reshape(L, S, dseg)
-        else:
-            # per-tile windowed gather on the byte-pair table: span per
-            # 128-entry tile <= ~(128 + nfch) entries = ~266 B;
-            # span_rows=6 gives a (6-2)*128 - 127 - 3 = 382-byte usable
-            # window after worst-case start misalignment and read tail
-            d_t = ((tmin % 65535) + (d_t - tmin)) * 16
-            states = extract_fields_shared(
-                jnp.asarray(_dither_orbit_bytes()),
-                d_t.reshape(L * F, Sd + padn),
-                span_rows=6, per_tile=True)[:, :Sd].reshape(L, S, dseg)
-        # the int16 wire value IS the signed LFSR state
+        # draw k from the initial state is orbit[k mod 65535]
+        states = extract_i16_table(_dither_orbit_u16(), d_off % 65535)
+        # the int16 table value IS the signed LFSR state
         st = states.astype(jnp.int32)
         dval = ((3 * st) >> 2).astype(jnp.float32)
         dv_fbw = dval[..., : nfch * 256].reshape(L, S, nfch, 256)

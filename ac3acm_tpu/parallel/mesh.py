@@ -1,10 +1,10 @@
 """Device-mesh helpers.
 
 The codec's parallelism axes (SURVEY.md §2.7): streams are the data axis
-(embarrassingly parallel, sharded over ICI), and the filterbank matmul's
+(embarrassingly parallel, sharded over the devices), and the filterbank matmul's
 frequency contraction can additionally be tensor-parallel for very wide
 transcode pipelines.  No reference counterpart exists (the reference is a
-single-threaded Windows codec); this is new TPU-native design.
+single-threaded Windows codec); this is new design.
 """
 from __future__ import annotations
 

@@ -132,7 +132,7 @@ class Transcoder:
         # parity of the compact path against the f32 path)
         self.compact_h2d = compact_h2d
         # parser='raw' decodes from the coded ES bytes themselves: the
-        # host parses side-info only and the TPU unpacks exponents /
+        # host parses side-info only and the device unpacks exponents /
         # re-runs bit allocation / dequantizes (ops.unpack_device), so
         # H2D volume is the source ES (~1.8 KB/frame at 448 kbps) instead
         # of premixed planes (~6-12 KB) -- the right topology when the

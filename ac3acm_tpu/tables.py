@@ -1,4 +1,4 @@
-"""Constant tables for the AC-3 (ATSC A/52) codec, TPU-native build.
+"""Constant tables for the AC-3 (ATSC A/52) codec.
 
 Every table is *generated* from the closed-form rule given in the A/52
 specification (or from the construction the reference performs at init time),
@@ -374,8 +374,8 @@ def enc_window_int16() -> np.ndarray:
 #     delay'[m]   = d[m]                       (m in [0,128))
 #     fold(n)     = n if n < 128 else 255-n
 #
-# with z = X @ Z and d = X @ D.  On TPU the entire filterbank is therefore a
-# single [*, 256] @ [256, 384] matmul on the MXU, batched over
+# with z = X @ Z and d = X @ D.  The entire filterbank is therefore a
+# single [*, 256] @ [256, 384] matmul, batched over
 # streams*blocks*channels, plus an elementwise window/OLA epilogue.
 #
 # The matrices are generated here from the reference algebra (verified

@@ -1,14 +1,18 @@
-"""Per-machine jit compilation cache directory.
+"""Persistent jit compilation cache: one directory rule for every entry
+point (tests, bench.py, chip_smoke.py, tools).
+
+  * JAX_COMPILATION_CACHE_DIR, when set, is the cache -- nothing else is
+    set in code;
+  * otherwise <repo>/.jax_cache, with a per-machine subdirectory on the
+    CPU backend only.
 
 The persistent XLA compile cache key does not cover the host CPU's feature
 set: an XLA:CPU AOT artifact compiled on one machine can be loaded on
 another with different features, where it warns about feature mismatch and
 can crash outright (observed: SIGSEGV in cpu_aot_loader deserialization
 when the compile machine had +prefer-no-scatter/+amx-* and the execution
-host did not).  Since this repo's cache directory is shared between the
-test driver, the judge, and interactive sessions on different hosts,
-partition it by a machine fingerprint so each host only ever loads its own
-artifacts; a new host pays one cold compile and is then warm.
+host did not).  CPU caches are therefore partitioned by a machine
+fingerprint, so each host only ever loads its own artifacts.
 """
 from __future__ import annotations
 
@@ -86,12 +90,12 @@ def ensure_map_headroom(want: int = 1 << 20) -> None:
     failing at the default 65530 limit.
 
     Writing a system-wide kernel tunable from test setup can surprise
-    shared hosts, so the write only happens when AC3TPU_RAISE_MAP_COUNT=1
+    shared hosts, so the write only happens when AC3ACM_RAISE_MAP_COUNT=1
     is set (and is logged when it fires).  Without the opt-in, callers
     shed executables (jax.clear_caches) when map_count() approaches the
     ceiling -- see tests/conftest.py's autouse fixture.
     """
-    if os.environ.get("AC3TPU_RAISE_MAP_COUNT") != "1":
+    if os.environ.get("AC3ACM_RAISE_MAP_COUNT") != "1":
         return
     try:
         with open("/proc/sys/vm/max_map_count") as f:
@@ -102,17 +106,34 @@ def ensure_map_headroom(want: int = 1 << 20) -> None:
             import logging
             logging.getLogger("ac3acm_tpu").info(
                 "raised vm.max_map_count %d -> %d "
-                "(AC3TPU_RAISE_MAP_COUNT=1)", cur, want)
+                "(AC3ACM_RAISE_MAP_COUNT=1)", cur, want)
     except OSError:
         pass
 
 
-def machine_cache_dir(base: str | None = None) -> str:
-    """<repo>/.jax_cache/<fingerprint>, created if missing."""
-    if base is None:
-        base = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))), ".jax_cache")
-    path = os.path.join(base, machine_fingerprint())
+REPO_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
+
+
+def compile_cache_dir(platform: str) -> str:
+    """The cache directory for a process on `platform` ("cpu", "gpu",
+    ...): JAX_COMPILATION_CACHE_DIR if set, else <repo>/.jax_cache
+    (plus /<fingerprint> on the CPU)."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    if platform == "cpu":
+        return os.path.join(REPO_CACHE, machine_fingerprint())
+    return REPO_CACHE
+
+
+def enable_compile_cache(platform: str | None = None) -> str:
+    """Point JAX's persistent compile cache at compile_cache_dir() for
+    this process's platform (default: jax.default_backend()) and return
+    the directory."""
+    import jax
+    path = compile_cache_dir(platform or jax.default_backend())
     os.makedirs(path, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
     return path

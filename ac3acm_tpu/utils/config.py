@@ -2,7 +2,7 @@
 
 The reference keeps persistent options in a registry DWORD of bit flags
 (AC3ACM.cpp:75-84: MULTICHANNEL, DYNAMICRANGE, DOLBYSURROUND, DONTUSEMMX,
-USE64, NOEXTENSIBLE) plus compile-time dtype policy.  The TPU build's
+USE64, NOEXTENSIBLE) plus compile-time dtype policy.  This build's
 equivalent is a dataclass, loadable from a JSON file / env.
 """
 from __future__ import annotations
@@ -37,7 +37,7 @@ class CodecConfig:
 
     @classmethod
     def load(cls, path: str | None = None) -> "CodecConfig":
-        path = path or os.environ.get("AC3TPU_CONFIG")
+        path = path or os.environ.get("AC3ACM_CONFIG")
         if path and os.path.exists(path):
             with open(path) as f:
                 return cls(**json.load(f))

@@ -2,8 +2,8 @@
 
 Parity with the reference CLI's print_fps (a52dec.c:70-120): periodic rate
 plus a final average; 1 frame = 1536 samples, so realtime at 48 kHz is
-31.25 fps.  Extended with the aggregate xRT metric the TPU build optimizes
-for (BASELINE.md north star).
+31.25 fps.  Extended with the aggregate xRT metric (realtime factor) the batched
+pipelines are measured by.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Tracing / profiling (aux-subsystem parity, SURVEY.md §5).
 
 The reference has the CLI fps meter, a gprof build flag, and the ACM
-message logfile.  TPU equivalents: jax.profiler traces (XPlane, viewable in
+message logfile.  Equivalents here: jax.profiler traces (XPlane, viewable in
 TensorBoard/Perfetto), the FpsMeter, and structured negotiation logging.
 """
 from __future__ import annotations
@@ -32,12 +32,15 @@ def log_format_negotiation(direction: str, src, dst):
 def profile(trace_dir: str | None = None):
     """jax.profiler trace context (--enable-gprof analogue).
 
-    with profile("/tmp/ac3_trace"): decode(...)
-    then: tensorboard --logdir /tmp/ac3_trace
+    with profile("traces"): decode(...)
+    then: tensorboard --logdir traces
+    (default: $AC3ACM_TRACE_DIR, else ac3acm_trace in the temp dir)
     """
+    import tempfile
     import jax
-    trace_dir = trace_dir or os.environ.get("AC3TPU_TRACE_DIR",
-                                            "/tmp/ac3tpu_trace")
+    trace_dir = trace_dir or os.environ.get(
+        "AC3ACM_TRACE_DIR", os.path.join(tempfile.gettempdir(),
+                                         "ac3acm_trace"))
     jax.profiler.start_trace(trace_dir)
     try:
         yield trace_dir

@@ -18,7 +18,7 @@ import os
 import numpy as np
 
 from tests.refbuild import get_ref
-from tests.test_decode import make_pcm
+from tests.oracle import ENC_SPECS, enc_spec_pcm
 
 # (name, annotation): the committed corpus contract.  Every stream decodes
 # through test_regression.py::test_golden_regression against its stored
@@ -66,19 +66,6 @@ ANNOTATIONS = {
         "decoder under test or with streamgen.py (VERDICT r4 #6)",
 }
 
-# reference-encoder streams: (name, nch, kbps, freq, nframes, seed, loud)
-ENC_SPECS = [
-    ("bench_51_448.ac3", 6, 448, 48000, 8, 77, False),
-    ("stereo_192.ac3", 2, 192, 48000, 6, 42, False),
-    ("mono_96.ac3", 1, 96, 48000, 4, 11, False),
-    ("stereo441_128.ac3", 2, 128, 44100, 9, 123, False),
-    ("s51_441_384.ac3", 6, 384, 44100, 6, 124, False),
-    ("stereo32_96.ac3", 2, 96, 32000, 6, 125, False),
-    ("halfrate24_64.ac3", 2, 64, 24000, 6, 126, False),
-    ("quarterrate12_32.ac3", 1, 32, 12000, 5, 127, False),
-    ("overdrive_51_448.ac3", 6, 448, 48000, 6, 128, True),
-]
-
 # synthetic streams: (name, gen_stream kwargs)
 GEN_SPECS = [
     ("cpl51_hazard.ac3", dict(seed=501, acmod=7, lfeon=True, nframes=6,
@@ -120,25 +107,11 @@ def real_audio_pcm(nch, nframes):
     return np.clip(pcm, -32767, 32767).astype(np.int16)
 
 
-def loud_pcm(nch, nframes, seed):
-    """Near-full-scale, channel-correlated content: a 2.0 downmix of these
-    planes sums coherently and exceeds full scale without level adjust."""
-    rng = np.random.default_rng(seed)
-    n = nframes * 1536
-    t = np.arange(n, dtype=np.float64)
-    f0 = rng.uniform(80, 400)
-    sig = (0.75 * np.sin(2 * np.pi * f0 * t / 48000)
-           + 0.25 * np.sin(2 * np.pi * f0 * 2.97 * t / 48000))
-    chans = [sig * (1.0 - 0.02 * i) for i in range(nch)]
-    pcm = np.stack(chans, -1) * 31500.0
-    return np.clip(pcm, -32767, 32767).astype(np.int16)
-
-
 if __name__ == "__main__":
     ref = get_ref()
-    for name, nch, kbps, freq, nfr, seed, loud in ENC_SPECS:
-        pcm = loud_pcm(nch, nfr, seed) if loud else make_pcm(nch, nfr,
-                                                             seed=seed)
+    for spec in ENC_SPECS:
+        name, nch, kbps, freq = spec[:4]
+        pcm = enc_spec_pcm(spec)
         es = ref.encode(pcm, freq, kbps)
         open(f"tests/golden/{name}", "wb").write(es)
         _, blocks = ref.decode_stream(es, 2)

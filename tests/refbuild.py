@@ -1,7 +1,7 @@
 """Build the reference liba52 + ac3enc from /root/reference as CPU shared libs.
 
 Used only as a *test oracle*: the differential tests decode/encode with the
-reference C code and compare against the TPU-native implementation.  Nothing
+reference C code and compare against this implementation.  Nothing
 from the reference is copied into this repository; we compile it in a scratch
 directory straight from the read-only reference checkout.
 """

@@ -35,8 +35,7 @@ def _assert_pcm_equal(got, ref):
     XLA:CPU blocks the f32 filterbank matmul differently per batch shape,
     so a batch-N lane and the batch-1 reference may differ by the
     reassociation error of the 256-term contraction (~1e-7 absolute at
-    unit level).  On the TPU MXU the tiling is shape-independent and the
-    comparison is bitwise; same-shape comparisons stay bitwise everywhere
+    unit level).  Same-shape comparisons stay bitwise everywhere
     (see test_native_parser_matches_python).
     """
     np.testing.assert_allclose(got, ref, rtol=0, atol=2e-6)

@@ -4,33 +4,8 @@ import pytest
 
 import ac3acm_tpu.tables as T
 from ac3acm_tpu.models.decoder import Decoder
+from tests.oracle import compare_oracle, make_pcm  # noqa: F401
 from tests.refbuild import get_ref
-
-
-def make_pcm(nch, nframes, seed=0, kind="music"):
-    rng = np.random.default_rng(seed)
-    n = nframes * 1536
-    t = np.arange(n)[:, None]
-    freqs = rng.uniform(30, 8000, size=(1, nch))
-    phase = rng.uniform(0, 2 * np.pi, size=(1, nch))
-    sig = 0.4 * np.sin(2 * np.pi * freqs * t / 48000 + phase)
-    sig += 0.3 * np.sin(2 * np.pi * freqs * 3.1 * t / 48000)
-    sig += 0.05 * rng.standard_normal((n, nch))
-    env = np.minimum(1.0, np.abs(np.sin(2 * np.pi * t / 9000)) + 0.1)
-    return np.clip(sig * env * 20000, -32767, 32767).astype(np.int16)
-
-
-def compare_oracle(a, b):
-    """test/compare.c thresholds, in 1/32768 full-scale units."""
-    a = np.asarray(a, np.float64).ravel()
-    b = np.asarray(b, np.float64).ravel()
-    assert a.shape == b.shape
-    d = a - b
-    maxe = np.abs(d).max() * 32768
-    mean = abs(d.mean()) * 32768
-    var = (d * d).mean() - d.mean() ** 2
-    std = 32768 * np.sqrt(max(var, 0))
-    return maxe, mean, std
 
 
 @pytest.mark.parametrize("nch,kbps", [(2, 192), (1, 96), (2, 448)])
@@ -58,7 +33,7 @@ def test_decode_matches_reference(nch, kbps):
     assert maxe <= 0.01 and mean <= 0.001 and std <= 0.001, (maxe, mean, std)
     assert maxe < 0.006, maxe
 
-    # opt-in fast path (matmul filterbank): the 256-term MXU contraction's
+    # opt-in fast path (matmul filterbank): the 256-term contraction's
     # f32 reassociation error vs the reference's split-radix order is a
     # few ulps of the partial sums -- contractually 0.02/0.001/0.002
     out2, _ = Decoder(exact=False).decode_stream(

@@ -89,7 +89,7 @@ def test_fuzz_rates(name, seed, fscod, frmsizecod, halfrate):
     from ac3acm_tpu.host.native import NativeDecoder
     out = NativeDecoder().decode_stream(es, T.A52_STEREO | T.A52_ADJUST_LEVEL)
     np.testing.assert_array_equal(out.reshape(out.shape[0], -1), ref_blocks)
-    # TPU pipeline within tolerance
+    # device pipeline within tolerance
     dec = Decoder()
     out2, fmt = dec.decode_stream(es, T.A52_STEREO | T.A52_ADJUST_LEVEL)
     mine = out2.reshape(out2.shape[0], -1)

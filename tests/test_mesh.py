@@ -14,8 +14,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 import ac3acm_tpu.tables as T
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs the 8-device virtual CPU mesh")
+pytestmark = pytest.mark.usefixtures("eight_devices")
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 

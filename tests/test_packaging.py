@@ -36,7 +36,6 @@ def test_wheel_contains_native_backend(wheel_path):
     for want in ("ac3acm_tpu/native/ac3host.cpp",
                  "ac3acm_tpu/native/ac3fb.inc",
                  "ac3acm_tpu/native/ac3sample.inc",
-                 "ac3acm_tpu/data/gate_golden.npz",
                  "ac3acm_tpu/host/native.py"):
         assert want in names, (want, [n for n in names if "native" in n])
 
@@ -68,7 +67,7 @@ def test_wheel_install_decodes_bit_exact(wheel_path, tmp_path):
         f"np.save({str(tmp_path / 'wheel_freq.npy')!r}, blocks['freq'])\n"
         "print('WHEEL_DECODE_OK')\n")
     env = dict(os.environ)
-    env["AC3TPU_NATIVE_BUILD_DIR"] = str(tmp_path / "nbuild")
+    env["AC3ACM_NATIVE_BUILD_DIR"] = str(tmp_path / "nbuild")
     # keep the repo out of the subprocess path entirely
     env.pop("PYTHONPATH", None)
     r = subprocess.run([sys.executable, str(script)], capture_output=True,

@@ -159,72 +159,6 @@ def test_raw_plan_flip_across_chunks():
     assert err < 1e-3, err
 
 
-def test_raw_fused_tail_matches_xla():
-    """raw_batched_pipeline(pallas=True) -- device premix + the fused
-    Pallas tail -- must stay within 1 int16 LSB of the raw XLA steady
-    body on golden coded content, with the delay carry handing over
-    across chunks (same bar as the premixed-path gate)."""
-    import jax.numpy as jnp
-    from ac3acm_tpu.host.native import SideinfoBatchParser
-    from ac3acm_tpu.models.decoder import StreamFormat, steady_ok
-    from ac3acm_tpu.ops import pallas_steady as PS
-    from ac3acm_tpu.ops import unpack_device as U
-    from ac3acm_tpu.parallel.pipeline import (init_batched_carry,
-                                              raw_batched_pipeline)
-    es = _es("bench_51_448.ac3")
-    flags = T.A52_STEREO | T.A52_ADJUST_LEVEL
-    nframes, L = 8, 2
-    sp = SideinfoBatchParser(1, nthreads=1)
-    r = sp.parse([es * 2], nframes, flags, 1.0, 384.0)
-    assert int(r["nframes"][0]) == nframes and r["valid"][0].all()
-    mb = max(-(-int(r["fsizes"][0].max()) // 128) * 128, 128)
-    recs = r["recs"][0]
-    meta1 = U.prune_raw_meta(
-        {k: np.ascontiguousarray(recs[k]) for k in recs.dtype.names})
-    fmt = StreamFormat(acmod=int(r["fmt"][0, 0, 0]),
-                       output=int(r["fmt"][0, 0, 1]),
-                       slev_zero=bool(r["fmt"][0, 0, 2]),
-                       chanbias=int(recs[0]["chanbias"]))
-    steady = steady_ok(fmt, {"blksw": meta1["blksw"].astype(bool),
-                             "coeff": meta1["coeff"]})
-    lo = steady and not meta1["blksw"].any()
-    assert steady and lo, "golden bench stream should be steady long-only"
-    fc = U.static_cpl_fc(meta1)
-
-    fu8 = np.broadcast_to(r["frames"][0, :, :mb][None],
-                          (L, nframes, mb)).copy()
-    meta = {k: np.broadcast_to(v[None], (L,) + v.shape).copy()
-            for k, v in meta1.items()}
-    bias = np.full((L, 6 * nframes), 384.0, np.float32)
-
-    old = PS.INTERPRET
-    PS.INTERPRET = True
-    try:
-        outs = {}
-        for pallas in (False, True):
-            fn = raw_batched_pipeline(fmt, emit_int16=True, steady=True,
-                                      long_only=True, cpl_fc=fc,
-                                      pallas=pallas)
-            carry = (U.init_unpack_carry(L), init_batched_carry(L))
-            pcms = []
-            half = nframes // 2
-            for f0 in (0, half):                   # 2 chunks: carry test
-                m = {k: jnp.asarray(v[:, 6 * f0: 6 * (f0 + half)])
-                     for k, v in meta.items()}
-                carry, pcm = fn(carry, jnp.asarray(fu8[:, f0:f0 + half]),
-                                m, jnp.asarray(bias[:, 6 * f0:
-                                                    6 * (f0 + half)]))
-                pcms.append(np.asarray(pcm, np.int64))
-            outs[pallas] = (carry, np.concatenate(pcms, axis=1))
-    finally:
-        PS.INTERPRET = old
-
-    (cx, px), (cf, pf) = outs[False], outs[True]
-    assert np.abs(px - pf).max() <= 1
-    np.testing.assert_allclose(np.asarray(cx[1][0]), np.asarray(cf[1][0]),
-                               rtol=0, atol=1.0 / 32768)
-
-
 def test_raw_rejects_mixed_formats():
     es_a = _es("bench_51_448.ac3")
     es_b = _es("stereo_192.ac3")

@@ -103,14 +103,14 @@ def test_sample_type_halfrate(kind):
 
 @pytest.mark.parametrize("stream", STREAMS)
 def test_fixed_device_backend_golden(stream):
-    """SampleDecoder('fixed', backend='tpu') -- host dequant pre-pass +
+    """SampleDecoder('fixed', backend='device') -- host dequant pre-pass +
     int32 Q30 device filterbank/downmix -- is bit-exact vs the reference
     -DLIBA52_FIXED build (and hence vs the CPU backend)."""
     es = open(os.path.join(GOLDEN, stream), "rb").read()
     ref = get_ref_variant("fixed")
     for name, flags in MODES:
         _, rb = ref.decode_stream(es, flags)
-        mine = SampleDecoder("fixed", backend="tpu").decode_stream(
+        mine = SampleDecoder("fixed", backend="device").decode_stream(
             es, flags | T.A52_ADJUST_LEVEL)
         m = mine.reshape(mine.shape[0], -1)
         assert rb.shape == m.shape, (name, rb.shape, m.shape)
@@ -129,7 +129,7 @@ def test_fixed_device_backend_fuzz(case):
     name, seed, acmod, lfeon, kw, flags = case
     es = gen_stream(seed, acmod, lfeon, nframes=3, **kw)
     ref = get_ref_variant("fixed")
-    mine = SampleDecoder("fixed", backend="tpu").decode_stream(
+    mine = SampleDecoder("fixed", backend="device").decode_stream(
         es, flags | T.A52_ADJUST_LEVEL)
     _, rb = ref.decode_stream(es, flags)
     m = mine.reshape(mine.shape[0], -1)

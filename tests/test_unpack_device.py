@@ -11,12 +11,10 @@ import jax.numpy as jnp
 import pytest
 
 import ac3acm_tpu.tables as T
-import ac3acm_tpu.ops.bitgather as BG
 import ac3acm_tpu.ops.unpack_device as U
 from ac3acm_tpu.host.parse import A52Parser, syncinfo
 from tests.streamgen import gen_stream
 
-BG.INTERPRET = True
 
 
 def _gen(seed, acmod, lfeon, nframes=3, **kw):
@@ -289,12 +287,10 @@ def test_exp_alloc_compaction_bit_exact():
 
 
 def test_compact_two_point_max_rate_exponents():
-    """ADVICE r4 (high): with exp_pts >= 2 the compact exponent gather
-    points are non-adjacent blocks of one frame; at max frame size
-    (3840 B, fscod=2 frmsizecod=36) points at blocks 0 and 5 put far
-    more than the mega window's byte span into what WAS one 1024-slot
-    step (640 slots/point).  The per-point 1024-slot padding must keep
-    each step inside one point; results must equal both the dense
+    """With exp_pts >= 2 the compact exponent gather points are
+    non-adjacent blocks of one frame; at max frame size (3840 B,
+    fscod=2 frmsizecod=36) points at blocks 0 and 5 sit more than
+    2816 B apart in one frame.  Results must equal both the dense
     program and the host parser bit for bit."""
     es = None
     for seed in range(41, 70):
@@ -306,7 +302,7 @@ def test_compact_two_point_max_rate_exponents():
             continue
         frames, rec, snaps = parse_with_snapshots(cand, T.A52_STEREO)
         # require the hazard: a frame whose block-5 exponent fields sit
-        # > 2816 B (the widened mega window) past its block-0 fields
+        # > 2816 B past its block-0 fields
         spans = []
         for f in range(len(frames)):
             offs = [r["exp_off"] for r in rec[6 * f: 6 * f + 6]]
@@ -325,18 +321,12 @@ def test_compact_two_point_max_rate_exponents():
     E = U.static_exp_pts(meta_np)
     assert E == 2, E
 
-    BG.SPAN_VIOLATIONS.clear()
-    BG.SPAN_CHECK = True
-    try:
-        outs = []
-        for e in (6, E):
-            carry = U.init_unpack_carry(1)
-            _, blocks = U.unpack_blocks(fu8, meta, carry, bias=0.0,
-                                        nfch=5, exp_pts=e)
-            outs.append(np.asarray(blocks["freq"]))
-    finally:
-        BG.SPAN_CHECK = False
-    assert not BG.SPAN_VIOLATIONS, BG.SPAN_VIOLATIONS
+    outs = []
+    for e in (6, E):
+        carry = U.init_unpack_carry(1)
+        _, blocks = U.unpack_blocks(fu8, meta, carry, bias=0.0,
+                                    nfch=5, exp_pts=e)
+        outs.append(np.asarray(blocks["freq"]))
     np.testing.assert_array_equal(outs[1], outs[0])
     # and against the host parser's dequant
     for b, sn in enumerate(snaps):
@@ -347,11 +337,10 @@ def test_compact_two_point_max_rate_exponents():
 
 
 def test_cpl_dither_span_guard():
-    """ADVICE r4 (medium): the cpl-dither gather layout is not
-    ordinal-monotone, so it must ride the per-tile kernel; with the span
-    guard armed, a zero-SNR fully-coupled fully-dithered 3/2 stream
-    (maximum LFSR draws: every fbw bin + every cpl bin x 5 ranks) must
-    produce no window violations and stay bit-exact vs the host."""
+    """The cpl-dither draw lattice is not ordinal-monotone: a zero-SNR
+    fully-coupled fully-dithered 3/2 stream (maximum LFSR draws: every
+    fbw bin + every cpl bin x 5 ranks) must stay bit-exact vs the
+    host."""
     es = _gen(51, 7, False, nframes=3, want_cpl=True, cpl_mask=0b11111,
               zero_snr=True, force_dith=True)
     frames, rec, snaps = parse_with_snapshots(es, T.A52_STEREO)
@@ -361,15 +350,9 @@ def test_cpl_dither_span_guard():
     meta = {k: jnp.asarray(v) for k, v in meta.items()}
     assert "dith" in meta and "chincpl" in meta
 
-    BG.SPAN_VIOLATIONS.clear()
-    BG.SPAN_CHECK = True
-    try:
-        carry = U.init_unpack_carry(1)
-        _, blocks = U.unpack_blocks(fu8, meta, carry, bias=0.0, nfch=5)
-        freq = np.asarray(blocks["freq"])[0]
-    finally:
-        BG.SPAN_CHECK = False
-    assert not BG.SPAN_VIOLATIONS, BG.SPAN_VIOLATIONS
+    carry = U.init_unpack_carry(1)
+    _, blocks = U.unpack_blocks(fu8, meta, carry, bias=0.0, nfch=5)
+    freq = np.asarray(blocks["freq"])[0]
     for b, sn in enumerate(snaps):
         bd = sn["block"]
         want = (bd.q * bd.a) * bd.b
@@ -377,71 +360,59 @@ def test_cpl_dither_span_guard():
 
 
 def test_span_guard_on_representative_content():
-    """ADVICE r4 (medium): the widened step-span contract is enforced
-    nowhere at runtime -- so enforce it HERE, over every stream family
-    the unpack suite uses, with the bitgather span guard armed.  Any
-    layout change that breaches a gather window turns silent corruption
-    into a loud failure on this test."""
-    BG.SPAN_VIOLATIONS.clear()
-    BG.SPAN_CHECK = True
-    try:
-        for name, seed, acmod, lfeon, kw in FREQ_CASES:
-            es = _gen(seed, acmod, lfeon, **kw)
-            flags = T.A52_STEREO | (T.A52_LFE if lfeon else 0)
-            frames, rec, _ = parse_with_snapshots(es, flags)
-            fu8, meta, _ = device_inputs(frames, rec)
-            meta = U.prune_raw_meta(
-                {k: np.asarray(v) for k, v in meta.items()})
-            meta = {k: jnp.asarray(v) for k, v in meta.items()}
-            carry = U.init_unpack_carry(1)
-            U.unpack_blocks(fu8, meta, carry, bias=0.0,
-                            nfch=int(T.NFCHANS[acmod]))
-            assert not BG.SPAN_VIOLATIONS, (name, BG.SPAN_VIOLATIONS)
-    finally:
-        BG.SPAN_CHECK = False
+    """Every stream family the unpack suite uses, through the pruned
+    (feature-specialized) program: bit-exact vs the host dequant."""
+    for name, seed, acmod, lfeon, kw in FREQ_CASES:
+        es = _gen(seed, acmod, lfeon, **kw)
+        flags = T.A52_STEREO | (T.A52_LFE if lfeon else 0)
+        frames, rec, snaps = parse_with_snapshots(es, flags)
+        fu8, meta, _ = device_inputs(frames, rec)
+        meta = U.prune_raw_meta(
+            {k: np.asarray(v) for k, v in meta.items()})
+        meta = {k: jnp.asarray(v) for k, v in meta.items()}
+        carry = U.init_unpack_carry(1)
+        _, blocks = U.unpack_blocks(fu8, meta, carry, bias=0.0,
+                                    nfch=int(T.NFCHANS[acmod]))
+        freq = np.asarray(blocks["freq"])[0]
+        for b, sn in enumerate(snaps):
+            bd = sn["block"]
+            np.testing.assert_array_equal(
+                freq[b], (bd.q * bd.a) * bd.b, err_msg=f"{name} block {b}")
 
 
 def test_emax_trimmed_gather_bit_exact():
     """The mantissa-gather trim (RowPlan.emax + 64-slot LFE, VERDICT r4
     #4) must be bitwise identical to the untrimmed program on
     no-coupling content -- dead slots carry no information, so dropping
-    them from the windowed gather changes nothing downstream.  Armed
-    span guard: the compacted layout must stay inside the gather
-    windows."""
+    them from the gather changes nothing downstream."""
     cases = [
         ("3f2r_lfe_nocpl", 61, 7, True, dict(want_cpl=False)),
         ("2f2r_blksw", 16, 6, False, dict(want_blksw=True)),
         ("stereo_plain", 31, 2, False, dict()),
     ]
-    BG.SPAN_VIOLATIONS.clear()
-    BG.SPAN_CHECK = True
-    try:
-        for name, seed, acmod, lfeon, kw in cases:
-            es = _gen(seed, acmod, lfeon, nframes=3, **kw)
-            flags = T.A52_STEREO | (T.A52_LFE if lfeon else 0)
-            frames, rec, snaps = parse_with_snapshots(es, flags)
-            fu8, meta, meta_np = device_inputs(frames, rec)
-            meta = U.prune_raw_meta(
-                {k: np.asarray(v) for k, v in meta.items()})
-            meta = {k: jnp.asarray(v) for k, v in meta.items()}
-            em = U.static_emax(meta_np)
-            outs = []
-            for emax in (256, em):
-                carry = U.init_unpack_carry(1)
-                _, blocks = U.unpack_blocks(
-                    fu8, meta, carry, bias=0.0,
-                    nfch=int(T.NFCHANS[acmod]), emax=emax)
-                outs.append(np.asarray(blocks["freq"]))
-            np.testing.assert_array_equal(outs[1], outs[0], err_msg=name)
-            # and against the host parser
-            for b, sn in enumerate(snaps):
-                bd = sn["block"]
-                np.testing.assert_array_equal(
-                    outs[1][0, b], (bd.q * bd.a) * bd.b,
-                    err_msg=f"{name} block {b}")
-        assert not BG.SPAN_VIOLATIONS, BG.SPAN_VIOLATIONS
-    finally:
-        BG.SPAN_CHECK = False
+    for name, seed, acmod, lfeon, kw in cases:
+        es = _gen(seed, acmod, lfeon, nframes=3, **kw)
+        flags = T.A52_STEREO | (T.A52_LFE if lfeon else 0)
+        frames, rec, snaps = parse_with_snapshots(es, flags)
+        fu8, meta, meta_np = device_inputs(frames, rec)
+        meta = U.prune_raw_meta(
+            {k: np.asarray(v) for k, v in meta.items()})
+        meta = {k: jnp.asarray(v) for k, v in meta.items()}
+        em = U.static_emax(meta_np)
+        outs = []
+        for emax in (256, em):
+            carry = U.init_unpack_carry(1)
+            _, blocks = U.unpack_blocks(
+                fu8, meta, carry, bias=0.0,
+                nfch=int(T.NFCHANS[acmod]), emax=emax)
+            outs.append(np.asarray(blocks["freq"]))
+        np.testing.assert_array_equal(outs[1], outs[0], err_msg=name)
+        # and against the host parser
+        for b, sn in enumerate(snaps):
+            bd = sn["block"]
+            np.testing.assert_array_equal(
+                outs[1][0, b], (bd.q * bd.a) * bd.b,
+                err_msg=f"{name} block {b}")
 
 
 def test_compaction_dense_content_falls_back():

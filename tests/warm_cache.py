@@ -19,16 +19,14 @@ REPO = os.path.dirname(HERE)
 
 _PRELUDE = """
 import os
-os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["JAX_PLATFORM_NAME"] = "cpu"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
         flags + " --xla_force_host_platform_device_count=8").strip()
 import jax
-jax.config.update("jax_platforms", "cpu")
-from ac3acm_tpu.utils.cache import machine_cache_dir
-jax.config.update("jax_compilation_cache_dir", machine_cache_dir())
+from ac3acm_tpu.utils.cache import enable_compile_cache
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 import numpy as np

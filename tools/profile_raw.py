@@ -1,7 +1,7 @@
 """Per-stage timing for the raw-H2D device unpack (ops.unpack_device).
 
-Stages timed as separate jitted programs over HBM-staged inputs (each
-with a checksum barrier), so their sum over-counts shared intermediates
+Stages timed as separate jitted programs over device-staged inputs (each
+call ending in block_until_ready), so their sum over-counts shared intermediates
 slightly, but per-stage weights identify the bottleneck:
 
   exp      unpack_exponents     (gather + group decode + setter resolve)
@@ -18,10 +18,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"))
 
 import numpy as np  # noqa: E402
 
@@ -30,6 +26,8 @@ GOLDEN = os.path.join(HERE, "tests", "golden")
 
 
 def main():
+    from ac3acm_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     nframes = int(sys.argv[2]) if len(sys.argv) > 2 else 16
     import jax
@@ -76,18 +74,14 @@ def main():
           f"seg={plan.seg}, MB={mb}")
 
     carry = U.init_unpack_carry(batch)
-    chk = jax.jit(lambda x: jnp.sum(
-        jnp.asarray(jax.tree.leaves(x)[0]).astype(jnp.float32)))
 
     def timed(name, fn, *args, reps=5):
         f = jax.jit(fn)
-        out = f(*args)
-        _ = float(chk(out))
+        out = jax.block_until_ready(f(*args))
         best = 1e9
         for _ in range(reps):
             t0 = time.perf_counter()
-            out = f(*args)
-            _ = float(chk(out))
+            out = jax.block_until_ready(f(*args))
             best = min(best, time.perf_counter() - t0)
         print(f"{name:8s} {best * 1000:8.2f} ms")
         return out, best
@@ -127,13 +121,11 @@ def main():
                               exp_pts=plan.exp_pts,
                               alloc_pts=plan.alloc_pts)
     state = (U.init_unpack_carry(batch), init_batched_carry(batch))
-    out = fn(state, fu8, meta_h, bias)
-    _ = float(chk(out[1]))
+    jax.block_until_ready(fn(state, fu8, meta_h, bias))
     best = 1e9
     for _ in range(5):
         t0 = time.perf_counter()
-        c2, pcm = fn(state, fu8, meta_h, bias)
-        _ = float(chk(pcm))
+        jax.block_until_ready(fn(state, fu8, meta_h, bias))
         best = min(best, time.perf_counter() - t0)
     xrt = batch * nframes * 6 * 256 / 48000.0 / best
     print(f"{'pipe':8s} {best * 1000:8.2f} ms   ({xrt:.0f}x realtime)")
